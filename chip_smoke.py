@@ -6,28 +6,47 @@
 Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off for matmuls and cuDNN;
-2. build the CUDA kernels from ``viforsdes_tpu_torch/csrc/`` (cached in
-   ``viforsdes_tpu_torch/_build/``);
-3. K1, the path-sampler forward kernel, against its plain PyTorch version;
+2. build the CUDA libraries from ``viforsdes_tpu_torch/csrc/`` (one ``nvcc``
+   per source, all at once; cached in ``viforsdes_tpu_torch/_build/``) and
+   print the compiler's register and spill report;
+3. K1, the path-sampler forward kernel, against its plain PyTorch version,
+   at the OU and Lorenz-63 shapes and two ragged ones;
 4. K2, the path-sampler backward kernels, against autograd through the plain
    version, including Cholesky diagonals at and below the clamp and a
    non-zero noise cotangent;
-5. the main path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
+5. K3/K4, the QK-prep kernels, against their plain versions, at the Lorenz
+   shape (q as a strided view of a QKV projection) and two ragged ones;
+6. K5, the flash forward, against its plain forward, and K6+K7, the flash
+   backward, against the plain backward and against autograd through the
+   plain forward, at the Lorenz shape, ragged shapes, a ``real_len`` mask and
+   head_dim 32 and 128;
+7. every kernel's time beside its plain version's (CUDA events) at the
+   shapes of the main paths;
+8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
-   ``posterior.summary(n_samples=256)``, with every kernel launch counted; one
-   step's ELBO and gradient through the kernels against the plain loop; and
-   the step time with the kernels (``sampler="auto"``) and with the plain loop
-   (``sampler="scan"``), measured in turns, plus a profile of the kernel path.
+   ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
+   runs no attention kernel: 101 tokens take the dense path); one step's ELBO
+   and gradient through the kernels against the plain loop; the step time
+   with the kernels and with the plain loop in turns, and a profile;
+9. the Lorenz-63 path: observations simulated with ``euler_maruyama``, then
+   ``infer()`` at the long-grid configuration (3-D, T=20, dt=0.01: 2001
+   tokens, batch 32, SiT 256 x 4 heads x 8 deep, GRU 64 x 2) and
+   ``posterior.summary(n_samples=64)`` with the exact launch counts of K1-K7;
+   one step's ELBO and gradients through the kernels against the plain path
+   (dense attention, unfused QK prep, ``sampler="scan"``) in fp32 and bf16;
+   the step time of both in turns with their peak device memory, and a
+   profile of the kernel path.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's launches
-in the main path, its largest error against the plain version, and its time
-beside the plain version's at the main path's shapes; the last line is
+in the Lorenz path, its largest error against the plain version, and its time
+beside the plain version's at the Lorenz shapes; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -35,14 +54,24 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# bench.py's configuration
+# bench.py's configuration (the OU path)
 BATCH, DT, HORIZON = 128, 0.05, 5.0
 ENC = dict(hidden_dim=256, cond_dim=256, num_heads=4, depth=8)
 HEAD = dict(hidden_dim=64, num_layers=2)
-N_WARMUP, N_TIMED = 5, 20
+OU_STEPS = 25   # infer() training steps (K1: 25 + 1 sampling launch, K2: 25)
+OU_TIMED = 10   # steps per arm of the timing phase, in two turns
+
+# examples/lorenz63.py's configuration (the long-grid path)
+LZ_BATCH, LZ_DT, LZ_HORIZON, LZ_OBS_EVERY = 32, 0.01, 20.0, 0.5
+LZ_TRUE = (10.0, 28.0, 8.0 / 3.0)
+LZ_NOISE = 2.0
+LZ_STEPS = 3          # infer() training steps
+LZ_SAMPLES = 64       # posterior.summary draws (one chunk)
+LZ_TIMED = 2          # steps per turn of the timing phase
 
 # Tolerances on the card, elementwise |kernel - plain| <= rtol*|plain| +
 # atol*max|plain|. Both sides are fp32 but sum in other orders (cuBLAS vs the
@@ -51,6 +80,10 @@ N_WARMUP, N_TIMED = 5, 20
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
 ELBO_RTOL = 1e-4  # the ELBO bar of tests/test_reference_parity.py
+# bf16 attention: max |err| <= bar * max|ref| (tests/test_flash_attention.py's
+# bars on the TPU), and the bf16 ELBO bar of tests/test_torch_elbo.py.
+BF16_FWD, BF16_BWD = 2e-2, 3e-2
+BF16_ELBO = 2e-2
 
 
 def log(msg: str) -> None:
@@ -73,21 +106,26 @@ def phase_card(torch) -> str:
 
 
 def phase_build(torch) -> None:
-    from viforsdes_tpu_torch.ops import kernel_build
-    from viforsdes_tpu_torch.ops.sde_sampler import _Kernels
+    from viforsdes_tpu_torch.ops.kernel_build import LIBRARIES
 
-    t0 = time.perf_counter()
-    _Kernels.get()
-    log(f"[build] sde_sampler library ready in {time.perf_counter() - t0:.1f} s")
-    sources = ["sde_sampler_fwd.cu", "sde_sampler_bwd.cu"]
-    report = kernel_build.library_path("sde_sampler", sources).with_suffix(".log")
-    for line in report.read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[ptxas] {line.strip()}")
+    def build(lib):
+        t0 = time.perf_counter()
+        lib.get()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        seconds = list(pool.map(build, LIBRARIES))
+    for lib, s in zip(LIBRARIES, seconds):
+        log(f"[build] {lib.name} library ready in {s:.1f} s")
+        for line in lib.report().read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[ptxas] {line.strip()}")
     torch.cuda.synchronize()
 
 
-def max_err(a, ref, rtol: float, atol: float, what: str) -> float:
+def max_err(a, ref, rtol: float, atol: float, what: str, atol_floor: float = 1.0) -> float:
+    """Largest |a - ref|, checked elementwise against rtol*|ref| +
+    atol*max(atol_floor, max|ref|)."""
     import torch
 
     a, ref = a.detach().double(), ref.detach().double()
@@ -96,7 +134,7 @@ def max_err(a, ref, rtol: float, atol: float, what: str) -> float:
     if not torch.isfinite(a).all():
         raise AssertionError(f"{what}: non-finite values")
     err = (a - ref).abs()
-    bound = rtol * ref.abs() + atol * max(1.0, float(ref.abs().max()))
+    bound = rtol * ref.abs() + atol * max(atol_floor, float(ref.abs().max()))
     if bool((err > bound).any()):
         raise AssertionError(
             f"{what}: max |err| {float(err.max()):.3e} exceeds the tolerance "
@@ -105,7 +143,17 @@ def max_err(a, ref, rtol: float, atol: float, what: str) -> float:
     return float(err.max())
 
 
-def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False):
+def check_close(a, ref, dtype, fp32_bars, bf16_bar: float, what: str) -> float:
+    """fp32: rtol/atol of ``fp32_bars`` (atol times max|ref|); bf16: max |err|
+    at most ``bf16_bar`` * max|ref|."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return max_err(a, ref, 0.0, bf16_bar, what, atol_floor=0.0)
+    return max_err(a, ref, *fp32_bars, what, atol_floor=0.0)
+
+
+def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT):
     """Weights and streams for one sampler shape, on the card."""
     from viforsdes_tpu_torch.config import HeadConfig
     from viforsdes_tpu_torch.inference.constants import DIAG_MIN
@@ -123,7 +171,7 @@ def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False):
         params["out_proj"]["w"][:, diag_out[0]] = 0.0
         params["out_proj"]["b"][diag_out[0]] = DIAG_MIN
         params["out_proj"]["b"][diag_out[1]] = -0.5
-    spec = head.spec(DT)
+    spec = head.spec(dt)
     w = prep_weights(spec, params)
     w = type(w)(*(t.cuda().contiguous() for t in w))
     x0 = torch.randn(B, D, generator=gen).cuda()
@@ -149,10 +197,11 @@ def cuda_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases)
-    (BATCH, 100, 1, 64, 2, "full", False),  # the main path's shape
-    (37, 7, 3, 32, 3, "full", True),        # ragged tile, tril, three layers
-    (16, 9, 2, 16, 1, "diag", True),        # diag mode, one layer
+SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
+    (BATCH, 100, 1, 64, 2, "full", False, DT),          # the OU path's shape
+    (LZ_BATCH, 2000, 3, 64, 2, "full", False, LZ_DT),   # the Lorenz path's shape
+    (37, 7, 3, 32, 3, "full", True, DT),                # ragged tile, tril, three layers
+    (16, 9, 2, 16, 1, "diag", True, DT),                # diag mode, one layer
 ]
 
 
@@ -160,8 +209,8 @@ def phase_forward(torch) -> float:
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     worst = 0.0
-    for i, (B, T, D, H, L, chol, clamp) in enumerate(SHAPES):
-        spec, w, x0, gc, eps, _ = sampler_case(torch, B, T, D, H, L, chol, 10 + i, clamp)
+    for i, (B, T, D, H, L, chol, clamp, dt) in enumerate(SHAPES):
+        spec, w, x0, gc, eps, _ = sampler_case(torch, B, T, D, H, L, chol, 10 + i, clamp, dt)
         for save_h in (False, True):
             out = ss.sampler_forward(spec, w, x0, gc, eps, save_h=save_h)
             ref = ss._forward_plain(spec, w, x0, gc, eps, save_h=save_h)
@@ -180,8 +229,8 @@ def phase_backward(torch) -> float:
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     worst = 0.0
-    for i, (B, T, D, H, L, chol, clamp) in enumerate(SHAPES):
-        spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 20 + i, clamp)
+    for i, (B, T, D, H, L, chol, clamp, dt) in enumerate(SHAPES):
+        spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 20 + i, clamp, dt)
 
         def grads(sample_fn):
             ins = [t.clone().requires_grad_() for t in (x0, gc, eps, *w)]
@@ -203,29 +252,190 @@ def phase_backward(torch) -> float:
     return worst
 
 
+def lorenz_heads(torch, shape, dtype, seed: int):
+    """q, k, v as the Lorenz path's attention sees them: strided [B, H, S, D]
+    views of one [B, S, 3E] projection output."""
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    return [t.reshape(b, s, h, d).transpose(1, 2) for t in torch.chunk(qkv, 3, dim=-1)]
+
+
+def dense_heads(torch, shape, dtype, seed: int, n: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(n)]
+
+
+def rope_tables(torch, s: int, d: int):
+    from viforsdes_tpu_torch.ops.embeddings import precompute_rope
+
+    tables = precompute_rope(d, end=max(2048, s)).slice_to(s).to("cuda")
+    return tables.cos, tables.sin
+
+
+QK_CASES = [  # (shape, dtype name, strided like the main path)
+    ((LZ_BATCH, 4, 2001, 64), "bfloat16", True),
+    ((2, 3, 77, 64), "float32", False),
+    ((1, 2, 1000, 32), "float32", False),
+]
+
+
+def phase_qk_prep(torch) -> tuple[float, float]:
+    from viforsdes_tpu_torch.ops import qk_prep as qp
+
+    worst_f = worst_b = 0.0
+    for i, (shape, dname, strided) in enumerate(QK_CASES):
+        dtype = getattr(torch, dname)
+        if strided:
+            x = lorenz_heads(torch, shape, dtype, 40 + i)[0]
+        else:
+            x = dense_heads(torch, shape, dtype, 40 + i, 1)[0]
+        dy = dense_heads(torch, shape, dtype, 50 + i, 1)[0]
+        cos, sin = rope_tables(torch, shape[2], shape[3])
+        out = qp.qk_prep_forward(x, cos, sin, 1e-6)
+        ref = qp._forward_plain(x, cos, sin, 1e-6)
+        dx = qp.qk_prep_backward(x, cos, sin, dy, 1e-6)
+        dx_ref = qp._backward_plain(x, cos, sin, dy, 1e-6)
+        torch.cuda.synchronize()
+        worst_f = max(worst_f, check_close(out, ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_FWD, f"K3 {shape} {dname}"))
+        worst_b = max(worst_b, check_close(dx, dx_ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_BWD, f"K4 {shape} {dname}"))
+        log(f"[K3/K4] {shape} {dname}{' strided' if strided else ''}: "
+            f"max |err| so far {worst_f:.3e} / {worst_b:.3e}")
+    return worst_f, worst_b
+
+
+FLASH_CASES = [  # (shape, dtype name, real_len)
+    ((LZ_BATCH, 4, 2001, 64), "bfloat16", None),
+    ((2, 3, 77, 64), "float32", None),
+    ((1, 2, 1000, 64), "float32", 700),
+    ((2, 4, 333, 32), "float32", 250),
+    ((2, 4, 333, 128), "float32", None),
+    ((2, 4, 333, 128), "bfloat16", 300),
+]
+
+
+def phase_flash(torch) -> tuple[float, float, float]:
+    from viforsdes_tpu_torch.ops import flash_attention as fa
+
+    worst = [0.0, 0.0, 0.0]  # K5, K6 (dk, dv), K7 (dq)
+    for i, (shape, dname, real_len) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dname)
+        b, h, s, d = shape
+        valid = s if real_len is None else real_len
+        scale = 1.0 / math.sqrt(d)
+        if i == 0:
+            q, k, v = lorenz_heads(torch, shape, dtype, 60)
+        else:
+            q, k, v = dense_heads(torch, shape, dtype, 60 + i, 3)
+        do = dense_heads(torch, shape, dtype, 70 + i, 1)[0]
+        o, lse = fa.flash_forward(q, k, v, valid, scale)
+        o_ref, lse_ref = fa._forward_plain(q, k, v, valid, scale)
+        grads = fa.flash_backward(q, k, v, o, lse, do, valid, scale)
+        grads_ref = fa._backward_plain(q, k, v, o_ref, lse_ref, do, valid, scale)
+        ins = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        o_auto = fa._forward_plain(*ins, valid, scale)[0]
+        grads_auto = torch.autograd.grad(o_auto, ins, grad_outputs=do.float())
+        torch.cuda.synchronize()
+        tag = f"{shape} {dname} real_len={real_len}"
+        worst[0] = max(worst[0], check_close(o, o_ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_FWD, f"K5 o {tag}"))
+        max_err(lse, lse_ref, FWD_RTOL, FWD_ATOL, f"K5 lse {tag}", atol_floor=0.0)
+        for name, a, r, r_auto in zip(("dq", "dk", "dv"), grads, grads_ref, grads_auto):
+            e = check_close(a, r, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD, f"K6/K7 {name} {tag}")
+            e_auto = check_close(a, r_auto, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD,
+                                 f"K6/K7 {name} vs autograd {tag}")
+            j = 2 if name == "dq" else 1
+            worst[j] = max(worst[j], e, e_auto)
+        log(f"[K5-K7] {tag}: max |err| so far K5 {worst[0]:.3e} K6 {worst[1]:.3e} K7 {worst[2]:.3e}")
+    return tuple(worst)
+
+
 def phase_kernel_times(torch) -> dict:
-    """K1/K2 and their plain versions at the main path's shape (B=128: 32
-    blocks of 4 rows); the kernels again at B=528, one block per SM, to show
-    how much of the card B=128 leaves idle."""
+    """K1/K2 and their plain versions at the OU path's shape (B=128: 32
+    blocks of 4 rows) and at the Lorenz path's (B=32, T=2000, D=3); the
+    kernels again at B=528, one block per SM, to show how much of the card
+    B=128 leaves idle."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     times = {}
-    for B in (BATCH, 528):
-        _, T, D, H, L, chol, _ = SHAPES[0]
-        spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 30)
+    for B, row, sfx, n_plain in ((BATCH, 0, "", 3), (528, 0, "_b528", 0), (LZ_BATCH, 1, "_lorenz", 2)):
+        _, T, D, H, L, chol, _, dt = SHAPES[row]
+        spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 30, dt=dt)
         fwd = ss.sampler_forward(spec, w, x0, gc, eps, save_h=True)
         d_paths = cot[0][:, 1:].transpose(0, 1).contiguous()
         d_means = cot[1].transpose(0, 1).contiguous()
         d_cholv = cot[2].transpose(0, 1).contiguous()
         bwd_args = (spec, w, x0, gc, eps, fwd, d_paths, d_means, d_cholv)
-        sfx = "" if B == BATCH else f"_b{B}"
-        times["fwd_ms" + sfx] = cuda_ms(torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 50)
-        times["bwd_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_cuda(*bwd_args), 50)
-        if B == BATCH:
-            times["fwd_plain_ms"] = cuda_ms(torch, lambda: ss._forward_plain(spec, w, x0, gc, eps, save_h=True), 5)
-            times["bwd_plain_ms"] = cuda_ms(torch, lambda: ss._backward_plain(*bwd_args), 5)
-    log(f"[times] sampler T=100 D=1 H=64 L=2 (B={BATCH} unless suffixed): " + json.dumps(times))
+        times["fwd_ms" + sfx] = cuda_ms(torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 20)
+        times["bwd_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_cuda(*bwd_args), 20)
+        if n_plain:
+            times["fwd_plain_ms" + sfx] = cuda_ms(
+                torch, lambda: ss._forward_plain(spec, w, x0, gc, eps, save_h=True), n_plain)
+            times["bwd_plain_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_plain(*bwd_args), n_plain)
+    log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2): "
+        + json.dumps(times))
     return times
+
+
+def phase_attention_times(torch) -> dict:
+    """K3-K7 and their plain versions at the Lorenz shape [32, 4, 2001, 64]
+    bf16, q/k/v strided views of one projection as on the main path. The
+    plain backward serves K6 and K7 together, so both carry its time."""
+    from viforsdes_tpu_torch.ops import flash_attention as fa
+    from viforsdes_tpu_torch.ops import qk_prep as qp
+
+    shape = (LZ_BATCH, 4, 2001, 64)
+    q, k, v = lorenz_heads(torch, shape, torch.bfloat16, 80)
+    do = dense_heads(torch, shape, torch.bfloat16, 81, 1)[0]
+    cos, sin = rope_tables(torch, shape[2], shape[3])
+    scale = 1.0 / math.sqrt(shape[3])
+    s = shape[2]
+    o, lse = fa._forward_cuda(q, k, v, s, scale)
+    operands, *_ = fa._backward_operands(q, k, v, o, lse, do, s, scale)
+    t = {
+        "qk_prep_fwd_ms": cuda_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50),
+        "qk_prep_fwd_plain_ms": cuda_ms(torch, lambda: qp._forward_plain(q, cos, sin, 1e-6), 20),
+        "qk_prep_bwd_ms": cuda_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50),
+        "qk_prep_bwd_plain_ms": cuda_ms(torch, lambda: qp._backward_plain(q, cos, sin, do, 1e-6), 20),
+        "flash_fwd_ms": cuda_ms(torch, lambda: fa._forward_cuda(q, k, v, s, scale), 5),
+        "flash_fwd_plain_ms": cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5),
+        "flash_bwd_dkv_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 0), 5),
+        "flash_bwd_dq_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 1), 5),
+        "flash_bwd_ms": cuda_ms(torch, lambda: fa._backward_cuda(q, k, v, o, lse, do, s, scale), 5),
+        "flash_bwd_plain_ms": cuda_ms(
+            torch, lambda: fa._backward_plain(q, k, v, o, lse, do, s, scale), 5),
+    }
+    flop = 2 * shape[0] * shape[1] * s * s * shape[3]  # one [S, S] x D product
+    t["flash_fwd_tflops"] = 2 * flop / t["flash_fwd_ms"] / 1e9
+    t["flash_bwd_tflops"] = 7 * flop / t["flash_bwd_ms"] / 1e9
+    log("[times] attention at [32, 4, 2001, 64] bf16: " + json.dumps(t))
+    return t
+
+
+# ------------------------------------------------------------------ counters
+
+
+def counters():
+    from viforsdes_tpu_torch.ops import flash_attention as fa
+    from viforsdes_tpu_torch.ops import qk_prep as qp
+    from viforsdes_tpu_torch.ops import sde_sampler as ss
+
+    return {
+        "K1": ss.FORWARD_LAUNCHES, "K2": ss.BACKWARD_LAUNCHES,
+        "K3": qp.FORWARD_LAUNCHES, "K4": qp.BACKWARD_LAUNCHES,
+        "K5": fa.FORWARD_LAUNCHES, "K6": fa.BACKWARD_DKV_LAUNCHES, "K7": fa.BACKWARD_DQ_LAUNCHES,
+    }
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.count for name, c in counters().items()}
+
+
+# ------------------------------------------------------------------ OU path
 
 
 def ou_problem(vt):
@@ -265,113 +475,125 @@ def make_trainer(vt, sampler: str, n_iterations: int):
 
 
 def phase_main_path(torch, vt) -> dict:
-    from viforsdes_tpu_torch.ops import sde_sampler as ss
-
     sde, obs, lik, prior = ou_problem(vt)
     config = vt.InferenceConfig(
-        training=vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=N_WARMUP + N_TIMED),
+        training=vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=OU_STEPS),
         encoder=vt.EncoderConfig(**ENC),
         head=vt.HeadConfig(**HEAD),
         sde_param_positive_dims=[0, 2],
         device="cuda",
     )
     torch.cuda.synchronize()
-    ss.FORWARD_LAUNCHES.reset()
-    ss.BACKWARD_LAUNCHES.reset()
+    reset_counts()
     t0 = time.perf_counter()
     posterior = vt.infer(sde, obs, lik, prior, HORIZON, config)
     summary = posterior.summary(n_samples=256)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd": ss.FORWARD_LAUNCHES.count, "bwd": ss.BACKWARD_LAUNCHES.count}
+    launches = read_counts()
 
     history = posterior.evidence_lower_bound_history
-    n_steps = N_WARMUP + N_TIMED
-    log(f"[main] infer + summary(256): {wall:.2f} s wall, {len(history)} steps")
-    log(f"[main] ELBO history: {[round(v, 3) for v in history]}")
-    log(f"[main] launches: K1 {launches['fwd']} (expected {n_steps} + 1 sampling), "
-        f"K2 {launches['bwd']} (expected {n_steps})")
+    n_steps = OU_STEPS
+    expected = {"K1": n_steps + 1, "K2": n_steps, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+    log(f"[ou] infer + summary(256): {wall:.2f} s wall, {len(history)} steps")
+    log(f"[ou] ELBO history: {[round(v, 3) for v in history]}")
+    log(f"[ou] launches {launches} (expected {expected})")
     if len(history) != n_steps or not all(math.isfinite(v) for v in history):
-        raise AssertionError("main path: missing or non-finite ELBO")
-    if launches != {"fwd": n_steps + 1, "bwd": n_steps}:
-        raise AssertionError(f"main path did not run through the kernels: {launches}")
+        raise AssertionError("OU path: missing or non-finite ELBO")
+    if launches != expected:
+        raise AssertionError(f"OU path did not run through exactly its kernels: {launches}")
+    check_summary(torch, summary, (101, 1))
+    log(f"[ou] posterior theta mean {summary.sde_parameter_mean.tolist()}, "
+        f"std {summary.sde_parameter_std.tolist()}")
+    return launches
+
+
+def check_summary(torch, summary, path_shape) -> None:
     checks = {
         "theta mean": (summary.sde_parameter_mean, (3,)),
         "theta std": (summary.sde_parameter_std, (3,)),
-        "path mean": (summary.diffusion_path_mean, (101, 1)),
-        "path std": (summary.diffusion_path_std, (101, 1)),
+        "path mean": (summary.diffusion_path_mean, path_shape),
+        "path std": (summary.diffusion_path_std, path_shape),
     }
     for name, (value, shape) in checks.items():
         if tuple(value.shape) != shape or not bool(torch.isfinite(value).all()):
             raise AssertionError(f"posterior summary {name}: {tuple(value.shape)} not finite {shape}")
-    log(f"[main] posterior theta mean {summary.sde_parameter_mean.tolist()}, "
-        f"std {summary.sde_parameter_std.tolist()}")
-    return launches
+
+
+def step_elbo_and_grads(torch, trainer):
+    """One step's ELBO and gradient per parameter group from the trainer's
+    step-0 draws."""
+    from viforsdes_tpu_torch.inference.optimizer import GROUPS
+
+    theta_eps, noise = trainer.draws(0)[0]
+    leaves = {g: trainer.flat_params[g].detach().requires_grad_() for g in GROUPS}
+    result = trainer._elbo_from_params(trainer.layout.unpack(leaves), theta_eps, noise)
+    grads = torch.autograd.grad(result.evidence_lower_bound, [leaves[g] for g in GROUPS])
+    return result.evidence_lower_bound.detach(), dict(zip(GROUPS, grads))
 
 
 def phase_step_parity(torch, vt) -> None:
     """One step's ELBO and gradient at the bench config: kernels vs plain loop
     on the same weights and draws."""
-    from viforsdes_tpu_torch.inference.optimizer import GROUPS
-
-    results = {}
-    for sampler in ("auto", "scan"):
-        trainer = make_trainer(vt, sampler, 1)
-        theta_eps, noise = trainer.draws(0)[0]
-        leaves = {g: trainer.flat_params[g].detach().requires_grad_() for g in GROUPS}
-        result = trainer._elbo_from_params(trainer.layout.unpack(leaves), theta_eps, noise)
-        grads = torch.autograd.grad(result.evidence_lower_bound, [leaves[g] for g in GROUPS])
-        results[sampler] = (result.evidence_lower_bound.detach(), grads)
+    results = {s: step_elbo_and_grads(torch, make_trainer(vt, s, 1)) for s in ("auto", "scan")}
     torch.cuda.synchronize()
     (e_k, g_k), (e_p, g_p) = results["auto"], results["scan"]
     rel = abs(float(e_k) - float(e_p)) / abs(float(e_p))
-    log(f"[parity] bench-config ELBO kernels {float(e_k):.6f} plain {float(e_p):.6f} rel {rel:.2e}")
+    log(f"[ou parity] ELBO kernels {float(e_k):.6f} plain {float(e_p):.6f} rel {rel:.2e}")
     if rel > ELBO_RTOL:
         raise AssertionError("bench-config ELBO differs between kernels and plain loop")
-    for g, a, r in zip(GROUPS, g_k, g_p):
-        e = max_err(a, r, BWD_RTOL, BWD_ATOL, f"bench-config gradient ({g})")
-        log(f"[parity] gradient {g}: max |err| {e:.3e}")
+    for g in g_k:
+        e = max_err(g_k[g], g_p[g], BWD_RTOL, BWD_ATOL, f"bench-config gradient ({g})")
+        log(f"[ou parity] gradient {g}: max |err| {e:.3e}")
+
+
+def timed_turns(torch, arms: dict, n_per_turn: int, order, label: str):
+    """ms/step of each arm, run in turns (``order``), each step ended by a
+    synchronize; the peak device memory of each arm over its timed steps."""
+    steps = {name: 0 for name in arms}
+    samples = {name: [] for name in arms}
+    peak = {name: 0 for name in arms}
+
+    def run(name: str, n: int) -> list[float]:
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            with arms[name][1]():
+                arms[name][0].train_step(steps[name])
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            steps[name] += 1
+        return out
+
+    for name in arms:
+        run(name, 1)  # warm-up: allocator, cuBLAS handles
+    for name in order:
+        torch.cuda.reset_peak_memory_stats()
+        samples[name] += run(name, n_per_turn)
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+    stats = {}
+    for name, v in samples.items():
+        q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
+        stats[name] = {"median_ms": statistics.median(v), "q1_ms": q[0], "q3_ms": q[2], "n": len(v),
+                       "peak_gib": peak[name] / 2**30}
+    log(f"[step] {label} ms/step: " + json.dumps(stats))
+    return steps, stats
 
 
 def phase_step_times(torch, vt):
     """ms/step with the kernels and with the plain loop, in turns
-    (plain, kernel, kernel, plain), each step ended by a synchronize."""
-    trainers = {s: make_trainer(vt, s, 10_000) for s in ("auto", "scan")}
-    steps = {s: 0 for s in trainers}
-
-    def run(sampler: str, n: int) -> list[float]:
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            trainers[sampler].train_step(steps[sampler])
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-            steps[sampler] += 1
-        return out
-
-    for s in trainers:
-        run(s, 3)  # warm-up: allocator, cuBLAS handles
-    torch.cuda.reset_peak_memory_stats()
-    samples = {"auto": [], "scan": []}
-    for s in ("scan", "auto", "auto", "scan"):
-        samples[s] += run(s, N_TIMED // 2)
-    stats = {}
-    for s, v in samples.items():
-        q = statistics.quantiles(v, n=4)
-        stats[s] = {"median_ms": statistics.median(v), "q1_ms": q[0], "q3_ms": q[2], "n": len(v)}
-    log(f"[step] ms/step at the bench config: " + json.dumps(stats))
-    log(f"[step] peak device memory over the timed steps (both trainers): "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return trainers["auto"], steps["auto"], stats
+    (plain, kernel, kernel, plain)."""
+    arms = {s: (make_trainer(vt, s, 10_000), contextlib.nullcontext) for s in ("auto", "scan")}
+    steps, stats = timed_turns(torch, arms, OU_TIMED // 2, ("scan", "auto", "auto", "scan"), "OU bench config")
+    return arms["auto"][0], steps["auto"], stats
 
 
-def phase_profile(torch, trainer, step: int, wall_ms: float) -> None:
+def phase_profile(torch, trainer, step: int, wall_ms: float, label: str, n: int = 5) -> None:
     """Device time by kernel over a few kernel-path steps; the idle share is
     taken against the unprofiled median step time ``wall_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    n = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             trainer.train_step(step + i)
@@ -379,12 +601,195 @@ def phase_profile(torch, trainer, step: int, wall_ms: float) -> None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
     total_us = sum(getattr(e, attr) for e in events) / n
-    log(f"[profile] {n} kernel-path steps: device kernel time {total_us / 1e3:.2f} ms/step "
+    log(f"[profile] {label}, {n} kernel-path steps: device kernel time {total_us / 1e3:.2f} ms/step "
         f"in {len(events)} kernel names, {sum(e.count for e in events) // n} launches/step; "
         f"against the unprofiled {wall_ms:.2f} ms/step: "
         f"device idle share {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}")
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:12]:
         log(f"[profile]   {getattr(e, attr) / n / 1e3:8.3f} ms/step  x{e.count // n:<4d} {e.key[:90]}")
+
+
+# -------------------------------------------------------------- Lorenz path
+
+
+def lorenz_problem(torch, vt):
+    """Stochastic Lorenz-63 (examples/lorenz63.py) with observations of all
+    three coordinates every 0.5 time units, simulated from a seeded generator."""
+
+    class StochasticLorenz63:
+        state_dim = 3
+        sde_param_dim = 3
+
+        def drift(self, x, p):
+            sigma_l, rho, beta = p[..., 0], p[..., 1], p[..., 2]
+            x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+            return torch.stack([sigma_l * (x2 - x1), x1 * (rho - x3) - x2, x1 * x2 - beta * x3], dim=-1)
+
+        def diffusion(self, x, p):
+            eye = torch.eye(3, dtype=x.dtype, device=x.device)
+            return (LZ_NOISE * eye).expand(*x.shape, 3)
+
+    sde = StochasticLorenz63()
+    gen = torch.Generator().manual_seed(17)
+    traj = vt.euler_maruyama(
+        sde, torch.tensor([[1.0, 1.0, 25.0]]), torch.tensor([LZ_TRUE]), LZ_HORIZON, LZ_DT,
+        generator=gen,
+    )
+    stride = round(LZ_OBS_EVERY / LZ_DT)
+    idx = list(range(0, traj.shape[1], stride))
+    if not bool(torch.isfinite(traj).all()):
+        raise AssertionError("Lorenz observations: non-finite simulation")
+    observations = vt.Observations(times=[i * LZ_DT for i in idx], values=traj[0, idx])
+    return (
+        sde,
+        observations,
+        vt.GaussianObservationLikelihood(variance=1.0),
+        vt.Prior(type=vt.PriorType.LOG_NORMAL, mean=1.0, std=1.5, dim=3),
+    )
+
+
+def lorenz_trainer(torch, vt, sampler: str, compute_dtype: str = "bfloat16"):
+    sde, obs, lik, prior = lorenz_problem(torch, vt)
+    return vt.VariationalInferenceTrainer(
+        sde, obs, lik, prior, LZ_HORIZON,
+        vt.TrainingConfig(time_step=LZ_DT, batch_size=LZ_BATCH, n_iterations=10_000,
+                          compute_dtype=compute_dtype),
+        vt.EncoderConfig(**ENC),
+        vt.HeadConfig(**HEAD, sampler=sampler),
+        state_positive_dims=[],
+        sde_param_positive_dims=[0, 1, 2],
+        device="cuda",
+    )
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The plain path's attention: the dispatch sends every grid to the dense
+    path (and so to the unfused RMSNorm + RoPE)."""
+    from viforsdes_tpu_torch.ops import attention
+
+    saved = attention.use_flash_attention
+    attention.use_flash_attention = lambda seq_len: False
+    try:
+        yield
+    finally:
+        attention.use_flash_attention = saved
+
+
+def phase_lorenz_path(torch, vt) -> dict:
+    sde, obs, lik, prior = lorenz_problem(torch, vt)
+    depth = ENC["depth"]
+    config = vt.InferenceConfig(
+        training=vt.TrainingConfig(time_step=LZ_DT, batch_size=LZ_BATCH, n_iterations=LZ_STEPS),
+        encoder=vt.EncoderConfig(**ENC),
+        head=vt.HeadConfig(**HEAD),
+        sde_param_positive_dims=[0, 1, 2],
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    posterior = vt.infer(sde, obs, lik, prior, LZ_HORIZON, config)
+    summary = posterior.summary(n_samples=LZ_SAMPLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    n = LZ_STEPS
+    # per training step: K5-K7 once per block, K3/K4 for q and for k of each
+    # block; summary() runs the encoder forward once more (one chunk)
+    expected = {"K1": n + 1, "K2": n, "K3": 2 * depth * (n + 1), "K4": 2 * depth * n,
+                "K5": depth * (n + 1), "K6": depth * n, "K7": depth * n}
+    history = posterior.evidence_lower_bound_history
+    log(f"[lorenz] {len(obs.times)} observations, grid {posterior.model.encoder.n_grid} tokens")
+    log(f"[lorenz] infer + summary({LZ_SAMPLES}): {wall:.2f} s wall, {len(history)} steps")
+    log(f"[lorenz] ELBO history: {[round(v, 3) for v in history]}")
+    log(f"[lorenz] launches {launches} (expected {expected})")
+    if len(history) != n or not all(math.isfinite(v) for v in history):
+        raise AssertionError("Lorenz path: missing or non-finite ELBO")
+    if launches != expected:
+        raise AssertionError(f"Lorenz path did not run through exactly its kernels: {launches}")
+    check_summary(torch, summary, (posterior.model.encoder.n_grid, 3))
+    log(f"[lorenz] posterior theta mean {summary.sde_parameter_mean.tolist()}, "
+        f"std {summary.sde_parameter_std.tolist()}")
+    return launches
+
+
+def perturbed_lorenz_trainer(torch, vt, sampler: str, compute_dtype: str):
+    """A Lorenz trainer whose SiT modulators and head output have seeded
+    weights: at init adaLN-Zero makes every block the identity and the head's
+    zero out_proj hides the encoder from the ELBO, which would give the flash
+    backward a zero cotangent."""
+    trainer = lorenz_trainer(torch, vt, sampler, compute_dtype)
+    gen = torch.Generator().manual_seed(5)
+    params = trainer.params  # views of the flat buffers
+    weights = [b["cond"]["net"]["w"] for b in params["encoder"]["sit"]["blocks"]]
+    with torch.no_grad():
+        for w in weights:
+            w.copy_(0.05 * torch.randn(w.shape, generator=gen))
+        w = params["head"]["out_proj"]["w"]
+        w.copy_(0.1 * torch.randn(w.shape, generator=gen))
+    return trainer
+
+
+def phase_lorenz_parity(torch, vt) -> dict:
+    """One Lorenz step's ELBO and gradients with the kernels against the plain
+    path (dense attention, unfused QK prep, the plain sampler loop) on the
+    same weights and draws, in fp32 and in bf16; each gradient leaf to the
+    bar times its own largest value."""
+    from viforsdes_tpu_torch.utils.tree import tree_items
+
+    out = {}
+    for dtype, bar in (("float32", ELBO_RTOL), ("bfloat16", BF16_ELBO)):
+        trainer = perturbed_lorenz_trainer(torch, vt, "auto", dtype)
+        kern = step_elbo_and_grads(torch, trainer)
+        reset_counts()
+        with plain_attention():
+            plain = step_elbo_and_grads(torch, perturbed_lorenz_trainer(torch, vt, "scan", dtype))
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain path launched kernels: {read_counts()}")
+        (e_k, g_k), (e_p, g_p) = kern, plain
+        qkv = trainer.layout.unpack(g_k)["encoder"]["sit"]["blocks"][-1]["attn"]["qkv_proj"]["w"]
+        log(f"[lorenz parity] {dtype}: max |d qkv_proj.w| of the last block {float(qkv.abs().max()):.3e}")
+        if float(qkv.abs().max()) == 0.0:
+            raise AssertionError("the attention weights got no gradient")
+        rel = abs(float(e_k) - float(e_p)) / abs(float(e_p))
+        log(f"[lorenz parity] {dtype}: ELBO kernels {float(e_k):.6f} plain {float(e_p):.6f} "
+            f"rel {rel:.2e} (bar {bar})")
+        if not math.isfinite(float(e_k)) or rel > bar:
+            raise AssertionError(f"Lorenz {dtype} ELBO differs between kernels and plain path")
+        for g in g_k:
+            if not bool(torch.isfinite(g_k[g]).all()):
+                raise AssertionError(f"Lorenz {dtype} gradient {g}: non-finite values")
+        # each leaf's max |err| against its own max |ref|
+        ratios = []
+        t_k, t_p = trainer.layout.unpack(g_k), trainer.layout.unpack(g_p)
+        for (path, a), (_, r) in zip(tree_items(t_k), tree_items(t_p)):
+            ref_max = float(r.abs().max())
+            ratios.append((float((a - r).abs().max()) / max(ref_max, 1e-30), path, ref_max))
+        ratios.sort(reverse=True)
+        for ratio, path, ref_max in ratios[:5]:
+            log(f"[lorenz parity] {dtype} gradient {path}: max |err| / max |ref| {ratio:.2e} "
+                f"(max |ref| {ref_max:.3e})")
+        worst = ratios[0][0]
+        if worst > bar:
+            raise AssertionError(f"Lorenz {dtype} gradient {ratios[0][1]} differs beyond {bar} x max|ref|")
+        out[dtype] = {"elbo_rel": rel, "grad_rel": worst}
+    return out
+
+
+def phase_lorenz_times(torch, vt):
+    """ms/step of the kernel path and the plain path, in turns
+    (plain, kernel, kernel, plain), with each arm's peak device memory; the
+    dense arm holds the [B, H, S, S] probabilities of all 8 blocks."""
+    arms = {
+        "kernels": (lorenz_trainer(torch, vt, "auto"), contextlib.nullcontext),
+        "plain": (lorenz_trainer(torch, vt, "scan"), plain_attention),
+    }
+    steps, stats = timed_turns(torch, arms, LZ_TIMED, ("plain", "kernels", "kernels", "plain"),
+                               "Lorenz-63 (B=32, 2001 tokens)")
+    return arms["kernels"][0], steps["kernels"], stats
 
 
 def main() -> int:
@@ -398,30 +803,45 @@ def main() -> int:
 
     kind = phase_card(torch)
     phase_build(torch)
-    fwd_err = phase_forward(torch)
-    bwd_err = phase_backward(torch)
+    errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
+    errs["K3"], errs["K4"] = phase_qk_prep(torch)
+    errs["K5"], errs["K6"], errs["K7"] = phase_flash(torch)
     times = phase_kernel_times(torch)
-    launches = phase_main_path(torch, vt)
+    att = phase_attention_times(torch)
+
+    phase_main_path(torch, vt)
     phase_step_parity(torch, vt)
     trainer, step, stats = phase_step_times(torch, vt)
-    phase_profile(torch, trainer, step, stats["auto"]["median_ms"])
+    phase_profile(torch, trainer, step, stats["auto"]["median_ms"], "OU bench config")
+    del trainer
+
+    launches = phase_lorenz_path(torch, vt)
+    phase_lorenz_parity(torch, vt)
+    trainer, step, stats = phase_lorenz_times(torch, vt)
+    phase_profile(torch, trainer, step, stats["kernels"]["median_ms"], "Lorenz-63", n=2)
     torch.cuda.synchronize()
 
+    rows = [
+        ("K1", "sde_sampler_fwd", "sde_sampler_fwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:141",
+         times["fwd_ms_lorenz"], times["fwd_plain_ms_lorenz"]),
+        ("K2", "sde_sampler_bwd", "sde_sampler_bwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:238",
+         times["bwd_ms_lorenz"], times["bwd_plain_ms_lorenz"]),
+        ("K3", "qk_prep_fwd", "qk_prep.cu", "viforsdes_tpu/ops/pallas/qk_prep.py:39",
+         att["qk_prep_fwd_ms"], att["qk_prep_fwd_plain_ms"]),
+        ("K4", "qk_prep_bwd", "qk_prep.cu", "viforsdes_tpu/ops/pallas/qk_prep.py:53",
+         att["qk_prep_bwd_ms"], att["qk_prep_bwd_plain_ms"]),
+        ("K5", "flash_attn_fwd", "flash_attn_fwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:362",
+         att["flash_fwd_ms"], att["flash_fwd_plain_ms"]),
+        ("K6", "flash_attn_bwd_dkv", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:574",
+         att["flash_bwd_dkv_ms"], att["flash_bwd_plain_ms"]),
+        ("K7", "flash_attn_bwd_dq", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:159",
+         att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"]),
+    ]
     kernels = [
-        {
-            "name": "sde_sampler_fwd", "route": "cuda",
-            "source": "viforsdes_tpu_torch/csrc/sde_sampler_fwd.cu",
-            "replaces": "viforsdes_tpu/ops/pallas/sde_sampler.py:141",
-            "launches": launches["fwd"], "max_abs_err": fwd_err,
-            "ms": times["fwd_ms"], "plain_ms": times["fwd_plain_ms"],
-        },
-        {
-            "name": "sde_sampler_bwd", "route": "cuda",
-            "source": "viforsdes_tpu_torch/csrc/sde_sampler_bwd.cu",
-            "replaces": "viforsdes_tpu/ops/pallas/sde_sampler.py:238",
-            "launches": launches["bwd"], "max_abs_err": bwd_err,
-            "ms": times["bwd_ms"], "plain_ms": times["bwd_plain_ms"],
-        },
+        {"name": name, "route": "cuda", "source": f"viforsdes_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[k], "max_abs_err": errs[k],
+         "ms": ms, "plain_ms": plain_ms}
+        for k, name, src, replaces, ms, plain_ms in rows
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

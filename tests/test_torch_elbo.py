@@ -50,8 +50,12 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def make_pair(*, state_positive_dims=(), theta_perturb=False, **training):
-    """A JAX trainer and a port trainer holding the same weights."""
+def make_pair(*, state_positive_dims=(), theta_perturb=False, encoder_perturb=False, **training):
+    """A JAX trainer and a port trainer holding the same weights.
+    ``encoder_perturb`` gives the SiT modulators and the head's output
+    projection weights: at init adaLN-Zero makes every block the identity and
+    the zero out_proj hides the encoder from the ELBO, so every encoder
+    gradient would be zero."""
     training = {"time_step": DT, "batch_size": BATCH, "n_iterations": 3,
                 "compute_dtype": "float32", **training}
     variance = 0.1
@@ -72,6 +76,16 @@ def make_pair(*, state_positive_dims=(), theta_perturb=False, **training):
         params = jax.tree.map(lambda a: a, jt.params)
         params["theta"]["tril"] = jnp.asarray(np.tril(np.full((3, 3), 0.3, np.float32), -1))
         params["theta"]["mean"] = jnp.asarray([0.2, -0.1, 0.1], jnp.float32)
+        jt.params = params
+        jt.opt_state = jt.optimizer.init(jt.params)
+        jt.ema_params = jax.tree.map(lambda a: a.copy(), params)
+    if encoder_perturb:
+        params = jax.tree.map(lambda a: a, jt.params)
+        for i, block in enumerate(params["encoder"]["sit"]["blocks"]):
+            w = block["cond"]["net"]["w"]
+            block["cond"]["net"]["w"] = 0.3 * jax.random.normal(jax.random.key(10 + i), w.shape, jnp.float32)
+        w = params["head"]["out_proj"]["w"]
+        params["head"]["out_proj"]["w"] = 0.1 * jax.random.normal(jax.random.key(9), w.shape, jnp.float32)
         jt.params = params
         jt.opt_state = jt.optimizer.init(jt.params)
         jt.ema_params = jax.tree.map(lambda a: a.copy(), params)
@@ -122,6 +136,7 @@ CASES = {
                                 "theta_perturb": True},
     "learned_obs_variance": {"learn_obs_variance": True},
     "annealed_obs_variance": {"obs_variance_final": 0.01, "obs_variance_anneal_steps": 10},
+    "encoder_in_the_gradient": {"encoder_perturb": True},
 }
 
 
@@ -147,7 +162,11 @@ def test_elbo_and_gradient_match_jax(case):
                                float(j_res.evidence_lower_bound), rtol=1e-4)
     for t_c, j_c in zip(t_res.components, j_res.components):
         np.testing.assert_allclose(float(t_c.detach()), float(j_c), rtol=1e-4, atol=1e-4)
-    assert_tree_close(tt.layout.unpack(dict(zip(GROUPS, grads))), j_grads, rtol=1e-4, atol_scale=1e-5)
+    t_grads = tt.layout.unpack(dict(zip(GROUPS, grads)))
+    assert_tree_close(t_grads, j_grads, rtol=1e-4, atol_scale=1e-5)
+    if CASES[case].get("encoder_perturb"):
+        for block in t_grads["encoder"]["sit"]["blocks"]:
+            assert float(block["attn"]["qkv_proj"]["w"].abs().max()) > 0.0
 
 
 def test_bf16_encoder_elbo_close_to_jax():

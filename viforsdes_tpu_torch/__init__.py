@@ -2,8 +2,9 @@
 
 Black-box variational inference for SDEs (Ryder et al., ICML 2018) on an
 NVIDIA GPU: the same API, ELBO and parameter layout as the JAX package, with
-the fused path sampler as hand-written CUDA kernels (``csrc/``). The JAX
-package is the reference the port is tested against.
+the fused path sampler, the QK-prep pass and flash attention as hand-written
+CUDA kernels (``csrc/``). The JAX package is the reference the port is tested
+against.
 """
 
 from viforsdes_tpu_torch.config import (
@@ -22,6 +23,7 @@ from viforsdes_tpu_torch.core import (
     Prior,
     PriorType,
     StateSpace,
+    euler_maruyama,
     make_sde,
 )
 from viforsdes_tpu_torch.infer import InferenceConfig, infer
@@ -35,6 +37,7 @@ __all__ = [
     "SDE",
     "FunctionalSDE",
     "make_sde",
+    "euler_maruyama",
     "Observations",
     "ObservationLikelihood",
     "GaussianObservationLikelihood",

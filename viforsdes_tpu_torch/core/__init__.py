@@ -5,6 +5,7 @@ from viforsdes_tpu_torch.core.observations import (
 )
 from viforsdes_tpu_torch.core.priors import Prior, PriorType
 from viforsdes_tpu_torch.core.sde import SDE, FunctionalSDE, make_sde
+from viforsdes_tpu_torch.core.solvers import euler_maruyama
 from viforsdes_tpu_torch.core.state_space import StateSpace
 
 __all__ = [
@@ -17,4 +18,5 @@ __all__ = [
     "Prior",
     "PriorType",
     "StateSpace",
+    "euler_maruyama",
 ]

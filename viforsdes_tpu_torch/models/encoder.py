@@ -4,8 +4,9 @@ PyTorch twin of ``viforsdes_tpu/models/encoder.py``: a grid of ``n_steps+1``
 learned ``bridge_token`` slots, observed slots overwritten by
 ``obs_proj(values)`` at static indices, a sinusoidal time embedding added,
 theta mapped to a cond vector by a 3-layer SiLU MLP, and the SiT stack run in
-``compute_dtype`` with the cond kept ``[B, C]``. The grid is never padded: the
-port has only the dense attention path.
+``compute_dtype`` with the cond kept ``[B, C]``. The grid is never padded (the
+JAX package's hoisted padding is not ported): on grids past 512 tokens the
+flash and QK-prep kernels mask the ragged tail themselves.
 """
 
 from __future__ import annotations

@@ -1,17 +1,20 @@
 """Multi-head self-attention with QK-RMSNorm, RoPE, sigmoid output gate, and
 residual-value mixing.
 
-PyTorch twin of the dense path of ``viforsdes_tpu/ops/attention.py``:
+PyTorch twin of ``viforsdes_tpu/ops/attention.py``:
 - fused QKV linear, heads split as ``b s (h d) -> b s h d``;
 - per-head non-affine RMSNorm on Q/K, then 1-D RoPE on Q/K;
-- non-causal scaled-dot-product attention with fp32 logits and softmax, the
-  probabilities cast to the value dtype for P·V (``_dense_sdpa_remat_impl``);
+- non-causal scaled-dot-product attention with fp32 logits and softmax;
 - sigmoid output gate of width head_dim broadcast over heads (zero-init, so
   0.5 at init);
 - residual-value mixing ``v = lam*v + (1-lam)*v0``.
 
-Flash attention and the fused QK-prep kernel serve grids past 512 tokens in the
-JAX package; they are not ported yet, so every grid takes the dense path.
+Grids of at most 512 tokens take the dense path: the probabilities cast to
+the value dtype for P·V (``_dense_sdpa_remat_impl``). Longer grids take the
+flash kernels (``ops/flash_attention.py``), with RMSNorm and RoPE fused into
+the QK-prep kernel (``ops/qk_prep.py``) when the rotation covers the whole
+head. Both paths keep q, k, v and the value state in ``[B, S, H, D]``: the
+kernels read them through their strides.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import Tensor
 
 from viforsdes_tpu_torch.ops.embeddings import RotaryTables, apply_rope_1d
+from viforsdes_tpu_torch.ops.flash_attention import flash_sdpa, use_flash_attention
 from viforsdes_tpu_torch.ops.initializers import (
     DEFAULT_INIT_POLICY,
     InitPolicy,
@@ -30,6 +34,7 @@ from viforsdes_tpu_torch.ops.initializers import (
     zeros_init,
 )
 from viforsdes_tpu_torch.ops.norms import rms_norm
+from viforsdes_tpu_torch.ops.qk_prep import qk_prep
 
 
 class AttentionConfig(NamedTuple):
@@ -95,13 +100,20 @@ def attention(
     k = k.reshape(b, s, h, d)
     v = v.reshape(b, s, h, d)
 
-    if cfg.qk_norm:
-        q = rms_norm(q, eps=cfg.qk_norm_eps)
-        k = rms_norm(k, eps=cfg.qk_norm_eps)
-    if rotary is not None:
-        # RoPE rotates along the sequence axis of [B, H, S, D]
-        q = apply_rope_1d(q.transpose(1, 2), rotary).transpose(1, 2)
-        k = apply_rope_1d(k.transpose(1, 2), rotary).transpose(1, 2)
+    flash = use_flash_attention(s)
+    if flash and cfg.qk_norm and rotary is not None and rotary.cos.shape[-1] * 2 == d:
+        # one fused pass per tensor over the [B, H, S, D] view
+        cos, sin = rotary.cos[:s], rotary.sin[:s]
+        q = qk_prep(q.transpose(1, 2), cos, sin, cfg.qk_norm_eps).transpose(1, 2)
+        k = qk_prep(k.transpose(1, 2), cos, sin, cfg.qk_norm_eps).transpose(1, 2)
+    else:
+        if cfg.qk_norm:
+            q = rms_norm(q, eps=cfg.qk_norm_eps)
+            k = rms_norm(k, eps=cfg.qk_norm_eps)
+        if rotary is not None:
+            # RoPE rotates along the sequence axis of [B, H, S, D]
+            q = apply_rope_1d(q.transpose(1, 2), rotary).transpose(1, 2)
+            k = apply_rope_1d(k.transpose(1, 2), rotary).transpose(1, 2)
 
     if cfg.residual_v and v0 is not None:
         if v0.shape != v.shape:
@@ -109,7 +121,10 @@ def attention(
         lam = params["v_residual_lambda"].to(v.dtype)
         v = lam * v + (1.0 - lam) * v0
 
-    attn_output = dense_sdpa(q, k, v, real_len)
+    if flash:
+        attn_output = flash_sdpa(q, k, v, real_len=real_len)
+    else:
+        attn_output = dense_sdpa(q, k, v, real_len)
     if cfg.gate:
         gate_scores = torch.sigmoid(linear(params["gate_proj"], hidden_states))
         attn_output = attn_output * gate_scores[:, :, None, :]

@@ -33,6 +33,7 @@ import torch
 from torch import Tensor
 
 from viforsdes_tpu_torch.ops.bounds import lower_bound
+from viforsdes_tpu_torch.ops.kernel_build import SDE_SAMPLER, LaunchCounter, raise_on
 
 
 class SamplerSpec(NamedTuple):
@@ -296,38 +297,6 @@ def _backward_plain(
 # ----------------------------------------------------------- CUDA kernels
 
 
-class _Kernels:
-    """The built library, loaded at first launch (never at import)."""
-
-    lib: ctypes.CDLL | None = None
-
-    @classmethod
-    def get(cls) -> ctypes.CDLL:
-        if cls.lib is None:
-            from viforsdes_tpu_torch.ops.kernel_build import load_library
-
-            lib = load_library("sde_sampler", ["sde_sampler_fwd.cu", "sde_sampler_bwd.cu"])
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.sde_sampler_fwd.argtypes = [p] * 17 + [i] * 6 + [f] * 3 + [p]
-            lib.sde_sampler_fwd.restype = i
-            lib.sde_sampler_bwd.argtypes = [p] * 28 + [i] * 6 + [f] * 3 + [p]
-            lib.sde_sampler_bwd.restype = i
-            lib.sde_sampler_weight_grad.argtypes = [p, i, i, i, p, i, i, i, p, i, p, p, p]
-            lib.sde_sampler_weight_grad.restype = i
-            cls.lib = lib
-        return cls.lib
-
-
-class LaunchCounter:
-    """Plain count of kernel launches made by a wrapper."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
 FORWARD_LAUNCHES = LaunchCounter()
 BACKWARD_LAUNCHES = LaunchCounter()
 
@@ -354,11 +323,6 @@ def _check_weights(spec: SamplerSpec, w: SamplerWeights, device: torch.device) -
 
 def _ptr(t: Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
 
 
 def _int_tables(spec: SamplerSpec, device: torch.device) -> tuple[Tensor, Tensor]:
@@ -388,12 +352,12 @@ def _forward_cuda(
         if save_h else None
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _Kernels.get().sde_sampler_fwd(
+    err = SDE_SAMPLER.get().sde_sampler_fwd(
         x0.data_ptr(), gc.data_ptr(), eps.data_ptr(), *(_ptr(t) for t in w),
         rows.data_ptr(), cols.data_ptr(), paths.data_ptr(), raw.data_ptr(), _ptr(h_all),
         batch, n_steps, d, h, n_layers, spec.n_tril, *_scalars(spec), stream,
     )
-    _raise_on(err, "sde_sampler_fwd")
+    raise_on(err, "sde_sampler_fwd")
     FORWARD_LAUNCHES.count += 1
     _, _, diag = _tables(spec, dev)
     raw_tril = raw[..., d:]
@@ -420,7 +384,7 @@ def _weight_grad(
         a_ptr, lda, a_shift, ka, g.data_ptr(), nj, nj, n_rows,
         partial.data_ptr(), n_split, dw.data_ptr(), _ptr(db), stream,
     )
-    _raise_on(err, "sde_sampler_weight_grad")
+    raise_on(err, "sde_sampler_weight_grad")
 
 
 def _backward_cuda(
@@ -450,7 +414,7 @@ def _backward_cuda(
     _check("d_means", d_means, (n_steps, batch, d), dev)
     _check("d_cholv", d_cholv, (n_steps, batch, spec.n_tril), dev)
     _check_weights(spec, w, dev)
-    lib = _Kernels.get()
+    lib = SDE_SAMPLER.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, cols = _int_tables(spec, dev)
 
@@ -481,7 +445,7 @@ def _backward_cuda(
         _ptr(d_gi), d_out.data_ptr(),
         batch, n_steps, d, h, n_layers, spec.n_tril, *_scalars(spec), stream,
     )
-    _raise_on(err, "sde_sampler_bwd")
+    raise_on(err, "sde_sampler_bwd")
 
     grads = SamplerWeights(*(torch.empty_like(t) for t in w))
     h_all = fwd.h_all

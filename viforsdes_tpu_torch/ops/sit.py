@@ -4,8 +4,10 @@ value-residual plumbing (twin of ``viforsdes_tpu/ops/sit.py``).
 Per block, two cond branches (attn, mlp), each ``(scale, shift, gate)``;
 residual update ``x + gate * f((1+scale)*norm(x) + shift)`` with non-affine
 LayerNorm; block 0 exports its value state ``v0`` and later blocks mix it in.
-No rematerialization: at the grids the dense path serves, the attention
-probabilities fit in device memory.
+No rematerialization: grids of at most 512 tokens take the dense attention
+path, whose probabilities fit in device memory, and longer grids take the
+flash kernels, which save one log-sum-exp per row instead of the
+probabilities (the JAX package also skips remat when flash serves the grid).
 """
 
 from __future__ import annotations
