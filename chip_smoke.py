@@ -18,10 +18,15 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
-   plain forward, at the Lorenz shape, ragged shapes, a ``real_len`` mask and
-   head_dim 32 and 128;
+   plain forward, at the Lorenz shape, ragged shapes and the bf16 tensor-core
+   tile edges (S = 1, 64, 65), ``real_len`` masks, head_dim 32 and 128 and
+   strided q/k/v; K6+K7 twice on the Lorenz inputs, bitwise equal;
 7. every kernel's time beside its plain version's (CUDA events) at the
-   shapes of the main paths;
+   shapes of the main paths, its bound (the larger of its operations over the
+   card's peak rate for their type and its bytes over the memory rate) and,
+   for K5-K7, the time of PyTorch's own flash attention
+   (``scaled_dot_product_attention`` pinned to its flash backend) on the same
+   inputs as the yardstick; K6/K7 also with fp32 inputs;
 8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
    ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
@@ -39,7 +44,9 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's launches
 in the Lorenz path, its largest error against the plain version, and its time
-beside the plain version's at the Lorenz shapes; the last line is
+beside the plain version's, its bound and the library call's at the Lorenz
+shapes (``library_ms`` null where no single PyTorch call computes the
+function); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -84,6 +91,11 @@ ELBO_RTOL = 1e-4  # the ELBO bar of tests/test_reference_parity.py
 # bars on the TPU), and the bf16 ELBO bar of tests/test_torch_elbo.py.
 BF16_FWD, BF16_BWD = 2e-2, 3e-2
 BF16_ELBO = 2e-2
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 on the
+# tensor cores, fp32 outside them, and device memory.
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -143,14 +155,15 @@ def max_err(a, ref, rtol: float, atol: float, what: str, atol_floor: float = 1.0
     return float(err.max())
 
 
-def check_close(a, ref, dtype, fp32_bars, bf16_bar: float, what: str) -> float:
+def check_close(a, ref, dtype, fp32_bars, bf16_bar: float, what: str, floor: float = 0.0) -> float:
     """fp32: rtol/atol of ``fp32_bars`` (atol times max|ref|); bf16: max |err|
-    at most ``bf16_bar`` * max|ref|."""
+    at most ``bf16_bar`` * max|ref|. ``floor`` is the least max|ref| the atol
+    scales with."""
     import torch
 
     if dtype == torch.bfloat16:
-        return max_err(a, ref, 0.0, bf16_bar, what, atol_floor=0.0)
-    return max_err(a, ref, *fp32_bars, what, atol_floor=0.0)
+        return max_err(a, ref, 0.0, bf16_bar, what, atol_floor=floor)
+    return max_err(a, ref, *fp32_bars, what, atol_floor=floor)
 
 
 def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT):
@@ -183,6 +196,45 @@ def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT)
         torch.randn(B, T, spec.n_tril, generator=gen).cuda(),
     )
     return spec, w, x0, gc, eps, cot
+
+
+def nbytes(*items) -> int:
+    """Bytes of the tensors in ``items``, walking tuples, lists and
+    NamedTuples and skipping anything else."""
+    import torch
+
+    total = 0
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def bound(flop: float, n_bytes: int, kind: str) -> dict:
+    """The least time the card could take for a function: the larger of its
+    ``flop`` at the peak rate of ``kind`` and its ``n_bytes`` (each input
+    read once, each output written once) at the memory rate."""
+    ops_ms = flop / PEAK_FLOPS[kind] * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flop": flop, "bytes": n_bytes, "peak": kind}
+
+
+def sampler_flop(spec, batch: int, steps: int) -> tuple[int, int]:
+    """FLOP of one K1 and one K2 call, two per multiply-add of their matrix
+    products (the elementwise gate math is left out). Per row and step K1 runs
+    the L layers' input and hidden gate products and the output projection;
+    K2 recomputes the gate products, runs their transposes back (BPTT), sends
+    the output cotangent back through the projection, and forms every weight
+    gradient (one more of each product)."""
+    d, h, n_layers, n_out = spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_out
+    gates = 2 * 3 * h * (d + h + (n_layers - 1) * 2 * h)
+    out = 2 * h * n_out
+    rows = batch * steps
+    return rows * (gates + out), rows * (3 * gates + 2 * out)
 
 
 def cuda_ms(torch, fn, n: int) -> float:
@@ -304,13 +356,22 @@ def phase_qk_prep(torch) -> tuple[float, float]:
     return worst_f, worst_b
 
 
-FLASH_CASES = [  # (shape, dtype name, real_len)
-    ((LZ_BATCH, 4, 2001, 64), "bfloat16", None),
-    ((2, 3, 77, 64), "float32", None),
-    ((1, 2, 1000, 64), "float32", 700),
-    ((2, 4, 333, 32), "float32", 250),
-    ((2, 4, 333, 128), "float32", None),
-    ((2, 4, 333, 128), "bfloat16", 300),
+FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
+    ((LZ_BATCH, 4, 2001, 64), "bfloat16", None, True),
+    ((2, 3, 77, 64), "float32", None, False),
+    ((1, 2, 1000, 64), "float32", 700, False),
+    ((2, 4, 333, 32), "float32", 250, False),
+    ((2, 4, 333, 128), "float32", None, False),
+    ((2, 4, 333, 128), "bfloat16", 300, False),
+    # edges of the bf16 tensor-core tiles (64 output rows a block, 64- or
+    # 32-row streamed tiles): one row, one full tile, one row past it
+    ((2, 4, 1, 64), "bfloat16", None, False),
+    ((2, 4, 64, 64), "bfloat16", None, False),
+    ((2, 4, 65, 64), "bfloat16", None, False),
+    ((2, 4, 2001, 64), "bfloat16", 1500, False),
+    ((2, 4, 333, 32), "bfloat16", None, False),
+    ((2, 4, 200, 128), "bfloat16", None, True),
+    ((2, 4, 333, 64), "bfloat16", 250, True),
 ]
 
 
@@ -318,13 +379,13 @@ def phase_flash(torch) -> tuple[float, float, float]:
     from viforsdes_tpu_torch.ops import flash_attention as fa
 
     worst = [0.0, 0.0, 0.0]  # K5, K6 (dk, dv), K7 (dq)
-    for i, (shape, dname, real_len) in enumerate(FLASH_CASES):
+    for i, (shape, dname, real_len, strided) in enumerate(FLASH_CASES):
         dtype = getattr(torch, dname)
         b, h, s, d = shape
         valid = s if real_len is None else real_len
         scale = 1.0 / math.sqrt(d)
-        if i == 0:
-            q, k, v = lorenz_heads(torch, shape, dtype, 60)
+        if strided:
+            q, k, v = lorenz_heads(torch, shape, dtype, 60 + i)
         else:
             q, k, v = dense_heads(torch, shape, dtype, 60 + i, 3)
         do = dense_heads(torch, shape, dtype, 70 + i, 1)[0]
@@ -336,16 +397,26 @@ def phase_flash(torch) -> tuple[float, float, float]:
         o_auto = fa._forward_plain(*ins, valid, scale)[0]
         grads_auto = torch.autograd.grad(o_auto, ins, grad_outputs=do.float())
         torch.cuda.synchronize()
-        tag = f"{shape} {dname} real_len={real_len}"
+        tag = f"{shape} {dname} real_len={real_len}{' strided' if strided else ''}"
         worst[0] = max(worst[0], check_close(o, o_ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_FWD, f"K5 o {tag}"))
         max_err(lse, lse_ref, FWD_RTOL, FWD_ATOL, f"K5 lse {tag}", atol_floor=0.0)
+        # at S = 1 the softmax over one key gives q and k no gradient: both
+        # sides are zero up to rounding, held to the bar times 1e-3
+        floor = 1e-3 if s == 1 else 0.0
         for name, a, r, r_auto in zip(("dq", "dk", "dv"), grads, grads_ref, grads_auto):
-            e = check_close(a, r, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD, f"K6/K7 {name} {tag}")
+            e = check_close(a, r, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD, f"K6/K7 {name} {tag}", floor)
             e_auto = check_close(a, r_auto, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD,
-                                 f"K6/K7 {name} vs autograd {tag}")
+                                 f"K6/K7 {name} vs autograd {tag}", floor)
             j = 2 if name == "dq" else 1
             worst[j] = max(worst[j], e, e_auto)
         log(f"[K5-K7] {tag}: max |err| so far K5 {worst[0]:.3e} K6 {worst[1]:.3e} K7 {worst[2]:.3e}")
+        if i == 0:  # the Lorenz shape: a second K6+K7 gives the same bits
+            again = fa.flash_backward(q, k, v, o, lse, do, valid, scale)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("dq", "dk", "dv"), grads, again):
+                if not torch.equal(a, r):
+                    raise AssertionError(f"K6/K7 {name} {tag}: two runs differ")
+            log(f"[K6/K7] {tag}: two runs bitwise equal in dq, dk, dv")
     return tuple(worst)
 
 
@@ -356,7 +427,7 @@ def phase_kernel_times(torch) -> dict:
     B=128 leaves idle."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
-    times = {}
+    times, bounds = {}, {}
     for B, row, sfx, n_plain in ((BATCH, 0, "", 3), (528, 0, "_b528", 0), (LZ_BATCH, 1, "_lorenz", 2)):
         _, T, D, H, L, chol, _, dt = SHAPES[row]
         spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 30, dt=dt)
@@ -371,44 +442,100 @@ def phase_kernel_times(torch) -> dict:
             times["fwd_plain_ms" + sfx] = cuda_ms(
                 torch, lambda: ss._forward_plain(spec, w, x0, gc, eps, save_h=True), n_plain)
             times["bwd_plain_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_plain(*bwd_args), n_plain)
+        if sfx == "_lorenz":
+            flop_f, flop_b = sampler_flop(spec, B, T)
+            grads = ss._backward_cuda(*bwd_args)
+            bounds["K1"] = bound(flop_f, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all), "fp32")
+            bounds["K2"] = bound(flop_b, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all,
+                                                d_paths, d_means, d_cholv, grads), "fp32")
     log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2): "
         + json.dumps(times))
-    return times
+    return times, bounds
 
 
-def phase_attention_times(torch) -> dict:
+def library_attention(torch, q, k, v, do) -> dict:
+    """The yardstick for K5-K7 (the port never calls it): PyTorch's
+    ``scaled_dot_product_attention`` pinned to its flash backend on the same
+    inputs, forward alone, and backward on one retained graph; with the
+    device kernels one forward and backward ran."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        out = F.scaled_dot_product_attention(*ins)
+        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, ins, do, retain_graph=True), 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(F.scaled_dot_product_attention(*ins), ins, do)
+            torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+    log(f"[library] scaled_dot_product_attention, backend {SDPBackend.FLASH_ATTENTION.name} "
+        f"(the only one enabled); device kernels of one forward + backward: "
+        + "; ".join(n[:80] for n in names))
+    return {"library_fwd_ms": fwd_ms, "library_bwd_ms": bwd_ms}
+
+
+def phase_attention_times(torch) -> tuple[dict, dict]:
     """K3-K7 and their plain versions at the Lorenz shape [32, 4, 2001, 64]
-    bf16, q/k/v strided views of one projection as on the main path. The
-    plain backward serves K6 and K7 together, so both carry its time."""
+    bf16, q/k/v strided views of one projection as on the main path, beside
+    their bounds and PyTorch's flash attention; K6/K7 again with fp32 inputs.
+    The plain and the library backward serve K6 and K7 together, so both
+    carry their time."""
     from viforsdes_tpu_torch.ops import flash_attention as fa
     from viforsdes_tpu_torch.ops import qk_prep as qp
 
     shape = (LZ_BATCH, 4, 2001, 64)
+    b, h, s, d = shape
     q, k, v = lorenz_heads(torch, shape, torch.bfloat16, 80)
     do = dense_heads(torch, shape, torch.bfloat16, 81, 1)[0]
-    cos, sin = rope_tables(torch, shape[2], shape[3])
-    scale = 1.0 / math.sqrt(shape[3])
-    s = shape[2]
+    cos, sin = rope_tables(torch, s, d)
+    scale = 1.0 / math.sqrt(d)
     o, lse = fa._forward_cuda(q, k, v, s, scale)
-    operands, *_ = fa._backward_operands(q, k, v, o, lse, do, s, scale)
+    operands, dq, dk, dv = fa._backward_operands(q, k, v, o, lse, do, s, scale)
+    lse_di = operands[1][4:]
     t = {
         "qk_prep_fwd_ms": cuda_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50),
         "qk_prep_fwd_plain_ms": cuda_ms(torch, lambda: qp._forward_plain(q, cos, sin, 1e-6), 20),
         "qk_prep_bwd_ms": cuda_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50),
         "qk_prep_bwd_plain_ms": cuda_ms(torch, lambda: qp._backward_plain(q, cos, sin, do, 1e-6), 20),
-        "flash_fwd_ms": cuda_ms(torch, lambda: fa._forward_cuda(q, k, v, s, scale), 5),
+        "flash_fwd_ms": cuda_ms(torch, lambda: fa._forward_cuda(q, k, v, s, scale), 20),
         "flash_fwd_plain_ms": cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5),
-        "flash_bwd_dkv_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 0), 5),
-        "flash_bwd_dq_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 1), 5),
-        "flash_bwd_ms": cuda_ms(torch, lambda: fa._backward_cuda(q, k, v, o, lse, do, s, scale), 5),
+        "flash_bwd_dkv_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 0), 20),
+        "flash_bwd_dq_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 1), 20),
+        "flash_bwd_ms": cuda_ms(torch, lambda: fa._backward_cuda(q, k, v, o, lse, do, s, scale), 20),
         "flash_bwd_plain_ms": cuda_ms(
             torch, lambda: fa._backward_plain(q, k, v, o, lse, do, s, scale), 5),
     }
-    flop = 2 * shape[0] * shape[1] * s * s * shape[3]  # one [S, S] x D product
-    t["flash_fwd_tflops"] = 2 * flop / t["flash_fwd_ms"] / 1e9
-    t["flash_bwd_tflops"] = 7 * flop / t["flash_bwd_ms"] / 1e9
-    log("[times] attention at [32, 4, 2001, 64] bf16: " + json.dumps(t))
-    return t
+    t.update(library_attention(torch, q, k, v, do))
+
+    # the same backward with fp32 inputs: the FMA kernels
+    q32, k32, v32 = lorenz_heads(torch, shape, torch.float32, 80)
+    do32 = do.float()
+    o32, lse32 = fa._forward_cuda(q32, k32, v32, s, scale)
+    operands32, dq32, dk32, dv32 = fa._backward_operands(q32, k32, v32, o32, lse32, do32, s, scale)
+    t["flash_bwd_dkv_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 0), 3)
+    t["flash_bwd_dq_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 1), 3)
+
+    product = 2 * b * h * s * s * d  # one [S, S] x D product
+    qk_out = qp._forward_cuda(q, cos, sin, 1e-6)
+    qk_dx = qp._backward_cuda(q, cos, sin, do, 1e-6)
+    # K3/K4: about 6 and 12 fp32 operations per element (RMS statistics,
+    # scale, rotation); their bytes bound them
+    bounds = {
+        "K3": bound(6 * q.numel(), nbytes(q, cos, sin, qk_out), "fp32"),
+        "K4": bound(12 * q.numel(), nbytes(q, cos, sin, do, qk_dx), "fp32"),
+        "K5": bound(2 * product, nbytes(q, k, v, o, lse), "bf16"),
+        "K6": bound(4 * product, nbytes(q, k, v, do, lse_di, dk, dv), "bf16"),
+        "K7": bound(3 * product, nbytes(q, k, v, do, lse_di, dq), "bf16"),
+        "K6 fp32": bound(4 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dk32, dv32), "fp32"),
+        "K7 fp32": bound(3 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dq32), "fp32"),
+    }
+    t["flash_fwd_tflops"] = 2 * product / t["flash_fwd_ms"] / 1e9
+    t["flash_bwd_tflops"] = 7 * product / t["flash_bwd_ms"] / 1e9
+    log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: the FMA kernels): " + json.dumps(t))
+    return t, bounds
 
 
 # ------------------------------------------------------------------ counters
@@ -806,8 +933,9 @@ def main() -> int:
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
     errs["K5"], errs["K6"], errs["K7"] = phase_flash(torch)
-    times = phase_kernel_times(torch)
-    att = phase_attention_times(torch)
+    times, bounds = phase_kernel_times(torch)
+    att, att_bounds = phase_attention_times(torch)
+    bounds.update(att_bounds)
 
     phase_main_path(torch, vt)
     phase_step_parity(torch, vt)
@@ -821,27 +949,34 @@ def main() -> int:
     phase_profile(torch, trainer, step, stats["kernels"]["median_ms"], "Lorenz-63", n=2)
     torch.cuda.synchronize()
 
-    rows = [
+    rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)
         ("K1", "sde_sampler_fwd", "sde_sampler_fwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:141",
-         times["fwd_ms_lorenz"], times["fwd_plain_ms_lorenz"]),
+         times["fwd_ms_lorenz"], times["fwd_plain_ms_lorenz"], None),
         ("K2", "sde_sampler_bwd", "sde_sampler_bwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:238",
-         times["bwd_ms_lorenz"], times["bwd_plain_ms_lorenz"]),
+         times["bwd_ms_lorenz"], times["bwd_plain_ms_lorenz"], None),
         ("K3", "qk_prep_fwd", "qk_prep.cu", "viforsdes_tpu/ops/pallas/qk_prep.py:39",
-         att["qk_prep_fwd_ms"], att["qk_prep_fwd_plain_ms"]),
+         att["qk_prep_fwd_ms"], att["qk_prep_fwd_plain_ms"], None),
         ("K4", "qk_prep_bwd", "qk_prep.cu", "viforsdes_tpu/ops/pallas/qk_prep.py:53",
-         att["qk_prep_bwd_ms"], att["qk_prep_bwd_plain_ms"]),
+         att["qk_prep_bwd_ms"], att["qk_prep_bwd_plain_ms"], None),
         ("K5", "flash_attn_fwd", "flash_attn_fwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:362",
-         att["flash_fwd_ms"], att["flash_fwd_plain_ms"]),
+         att["flash_fwd_ms"], att["flash_fwd_plain_ms"], att["library_fwd_ms"]),
         ("K6", "flash_attn_bwd_dkv", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:574",
-         att["flash_bwd_dkv_ms"], att["flash_bwd_plain_ms"]),
+         att["flash_bwd_dkv_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
         ("K7", "flash_attn_bwd_dq", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:159",
-         att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"]),
+         att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
     ]
+    ms_of = {row[0]: row[4] for row in rows}
+    ms_of["K6 fp32"], ms_of["K7 fp32"] = att["flash_bwd_dkv_fp32_ms"], att["flash_bwd_dq_fp32_ms"]
+    for k, bd in bounds.items():
+        log(f"[bounds] {k}: {ms_of[k]:.4f} ms against a bound of {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}: {bd['flop'] / 1e9:.2f} GFLOP at the {bd['peak']} peak, "
+            f"{bd['bytes'] / 1e6:.1f} MB), {bd['bound_ms'] / ms_of[k]:.4f} of the bound")
     kernels = [
         {"name": name, "route": "cuda", "source": f"viforsdes_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[k], "max_abs_err": errs[k],
-         "ms": ms, "plain_ms": plain_ms}
-        for k, name, src, replaces, ms, plain_ms in rows
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[k]["bound_ms"],
+         "bound_by": bounds[k]["bound_by"], "library_ms": library_ms}
+        for k, name, src, replaces, ms, plain_ms, library_ms in rows
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,68 @@
+"""The bound arithmetic of ``chip_smoke.py``: the least time the card could
+take for each kernel (``bound_ms`` of its kernels line), the larger of its
+operations over the peak rate of their type and its bytes over the memory
+rate, at the Lorenz shapes. Tensors on the ``meta`` device carry the shapes
+without memory. The expected figures are worked out by hand from the shapes:
+one [S, S] x D product at [32, 4, 2001, 64] is 65.6 GFLOP, one bf16
+[32, 4, 2001, 64] tensor 32.8 MB.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from viforsdes_tpu_torch.ops.sde_sampler import SamplerSpec
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
+
+B, H, S, D = 32, 4, 2001, 64
+PRODUCT = 2 * B * H * S * S * D
+
+
+def _bhsd(dtype):
+    return torch.empty((B, H, S, D), dtype=dtype, device="meta")
+
+
+def _rows():
+    return torch.empty((B, H, S), dtype=torch.float32, device="meta")
+
+
+@pytest.mark.parametrize(
+    "products,n_tensors,n_rows,dtype,peak,want_ms,want_by",
+    [
+        (2, 4, 1, torch.bfloat16, "bf16", 0.133, "operations"),  # K5: q, k, v -> o, lse
+        (4, 6, 2, torch.bfloat16, "bf16", 0.265, "operations"),  # K6: q, k, v, do, lse, di -> dk, dv
+        (3, 5, 2, torch.bfloat16, "bf16", 0.199, "operations"),  # K7: q, k, v, do, lse, di -> dq
+        (4, 6, 2, torch.float32, "fp32", 3.92, "operations"),    # K6 on fp32 FMA
+        (0, 2, 0, torch.bfloat16, "fp32", 0.0196, "bytes"),      # K3: 65.6 MB, x -> out
+        (0, 3, 0, torch.bfloat16, "fp32", 0.0294, "bytes"),      # K4: 98.4 MB, x, dy -> dx
+    ],
+)
+def test_attention_bounds_at_the_lorenz_shape(products, n_tensors, n_rows, dtype, peak,
+                                              want_ms, want_by):
+    tensors = [_bhsd(dtype) for _ in range(n_tensors)] + [_rows() for _ in range(n_rows)]
+    got = chip_smoke.bound(products * PRODUCT, chip_smoke.nbytes(tensors), peak)
+    assert got["bound_ms"] == pytest.approx(want_ms, rel=5e-3)
+    assert got["bound_by"] == want_by
+
+
+def test_sampler_flop_at_the_lorenz_shape():
+    """Per row and step (D=3, H=64, L=2, 9 outputs): gate products
+    2*192*(3 + 64 + 128) = 74,880 and the output projection 2*64*9 = 1,152;
+    K1 does each once, K2 the gates three times and the projection twice."""
+    spec = SamplerSpec(state_dim=3, hidden_dim=64, num_layers=2, time_step=0.01, diag_min=1e-3)
+    fwd, bwd = chip_smoke.sampler_flop(spec, 32, 2000)
+    assert fwd == 64_000 * (74_880 + 1_152)
+    assert bwd == 64_000 * (3 * 74_880 + 2 * 1_152)
+    assert chip_smoke.bound(fwd, 0, "fp32")["bound_ms"] == pytest.approx(0.0726, rel=5e-3)
+
+
+def test_nbytes_walks_containers_and_skips_the_rest():
+    t = torch.empty((5, 7), dtype=torch.bfloat16, device="meta")
+    spec = SamplerSpec(3, 64, 2, 0.01, 1e-3)
+    assert chip_smoke.nbytes(t, (spec, None, [t, 3.0])) == 2 * 5 * 7 * 2

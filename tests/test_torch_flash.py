@@ -7,6 +7,8 @@ the arithmetic the CUDA kernels K5-K7 are held to on the card:
 - against the JAX package's forked Pallas flash kernel (``flash_attention_dqfix``)
   in TPU interpret mode at (1, 2, 512, 64) with 128-wide blocks: o to atol
   2e-6, dq, dk, dv to atol 3e-6 (the bars of ``tests/test_flash_attention.py``);
+  in bf16, the working dtype of the tensor-core K6/K7, at S = 512 and at a
+  ragged S with ``real_len``: o, dq, dk, dv to 1e-2 of their largest value;
 - against JAX ``flash_sdpa`` with the dense masked reference and ``real_len``
   below S: values of the real rows to atol 2e-6, gradients (pad rows carry no
   cotangent, as in the encoder) to atol 1e-5 (fp32 sums over up to 1000 keys
@@ -71,6 +73,69 @@ def test_matches_pallas_flash_kernel_in_interpret_mode():
     np.testing.assert_allclose(t_out, np.asarray(j_out), atol=2e-6)
     for name, got, want in zip("qkv", t_grads, j_grads):
         np.testing.assert_allclose(got, np.asarray(want), atol=3e-6, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("s,real_len", [(512, None), (200, 150)])
+def test_bf16_matches_pallas_flash_kernel_in_interpret_mode(s, real_len):
+    """bf16 inputs, the Lorenz path's working dtype: the port's ``flash_sdpa``
+    (its plain versions on the CPU: fp32 inside, results rounded to bf16)
+    against the Pallas kernel in TPU interpret mode, which also rounds p and ds
+    to bf16 before its products, as the tensor-core K6/K7 do on the card.
+    The ragged S is padded to 256 for the Pallas kernel with the pad in the
+    ``real_len`` segment, as the JAX package's ``flash_sdpa`` pads it; pad rows
+    carry no cotangent, as in the encoder. Bar: max |err| <= 1e-2 * max |ref|
+    for o and each gradient, a few bf16 roundings (2^-8 relative) of the
+    largest value; the card's bf16 bars are 2e-2 and 3e-2."""
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, SegmentIds
+
+    from viforsdes_tpu.ops.pallas.flash_fixed import flash_attention_dqfix
+
+    b, h, d = 1, 2, 64
+    padded = -(-s // 128) * 128
+    q, k, v, ct = (jnp.asarray(a, jnp.bfloat16) for a in _normals((b, h, s, d), 8, 4))
+    valid = s if real_len is None else real_len
+    ct = ct.at[:, :, valid:].set(0)
+    bs = BlockSizes(
+        block_q=128, block_k_major=128, block_k=128, block_b=1,
+        block_q_major_dkv=128, block_k_major_dkv=128, block_k_dkv=128,
+        block_q_dkv=128, block_k_major_dq=128, block_k_dq=128, block_q_dq=128,
+    )
+    seg = None
+    if padded != s or valid < s:
+        ids = jnp.zeros((b, padded), jnp.int32).at[:, valid:].set(1)
+        seg = SegmentIds(q=ids, kv=ids)
+    sm = 1.0 / math.sqrt(d)
+
+    def fix(q, k, v):
+        q, k, v = (jnp.pad(t, ((0, 0), (0, 0), (0, padded - s), (0, 0))) for t in (q, k, v))
+        out = flash_attention_dqfix(q, k, v, segment_ids=seg, sm_scale=sm, block_sizes=bs)
+        return out[:, :, :s]
+
+    with pltpu.force_tpu_interpret_mode():
+        j_out = fix(q, k, v)
+        j_grads = jax.grad(
+            lambda *a: jnp.sum(fix(*a).astype(jnp.float32) * ct.astype(jnp.float32)),
+            argnums=(0, 1, 2),
+        )(q, k, v)
+
+    def to_torch(t):
+        return torch.tensor(np.asarray(t, np.float32)).bfloat16()
+
+    ins = [to_torch(t).requires_grad_() for t in (q, k, v)]
+    t_out = tfa.flash_sdpa(*ins, kernel_layout=True, real_len=real_len)
+    t_grads = torch.autograd.grad(t_out, ins, grad_outputs=to_torch(ct))
+    assert t_out.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in t_grads)
+
+    def check(got, want, what):
+        got = got.detach().float().numpy()
+        want = np.asarray(want, np.float32)
+        err, top = np.abs(got - want).max(), np.abs(want).max()
+        assert err <= 1e-2 * top, f"{what}: max |err| {err:.3e}, max |ref| {top:.3e}"
+
+    check(t_out[:, :, :valid], j_out[:, :, :valid], "o")
+    for name, got, want in zip("qkv", t_grads, j_grads):
+        check(got, want, f"d{name}")
 
 
 @pytest.mark.parametrize("s,real_len", [(37, 30), (513, 400), (1000, 999)])

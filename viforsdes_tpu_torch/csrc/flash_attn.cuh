@@ -1,7 +1,9 @@
 // Shared definitions of the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): tile sizes, the mask, and the tile loaders.
+// flash_attn_bwd.cu): tile sizes, the mask, and the tile loaders of the fp32
+// FMA kernels (K5, and K6/K7 for fp32 inputs; the bf16 K6/K7 run on the
+// tensor cores, flash_attn_mma.cuh).
 //
-// Every kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
+// Every FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
 // head) with 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
 // 4*ty .. 4*ty+3 and columns 4*tx .. 4*tx+3 of a tile, and rows 4*ty .. of the
 // [64, D] accumulators with D/16 of their columns. Operands live in shared

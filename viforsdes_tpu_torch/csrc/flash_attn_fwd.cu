@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: arithmetic. At the Lorenz shape [32, 4, 2001, 64]
 // one q k^T is 2*B*H*S^2*D = 65.6 GFLOP and the forward does two such
-// products per layer, against 16 MB of q, k, v.
+// products per layer (131 GFLOP, 0.133 ms at 989 TFLOP/s of bf16 tensor
+// cores), against 98 MB of q, k, v in bf16 (3 x 32.8 MB; 0.03 ms at 3.35 TB/s).
 //
 // Design: one block per (64-row q tile, head, batch); the Pallas grid's
 // sequential kv axis becomes a loop over 64-row kv tiles inside the block.
