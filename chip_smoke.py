@@ -13,20 +13,25 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    at the OU and Lorenz-63 shapes and two ragged ones;
 4. K2, the path-sampler backward kernels, against autograd through the plain
    version, including Cholesky diagonals at and below the clamp and a
-   non-zero noise cotangent;
+   non-zero noise cotangent, on both of its paths (weights staged in shared
+   memory, or streamed at H=64 with three layers); bitwise equal at 1, 2 and
+   4 rows per block and over two runs at the Lorenz shape;
 5. K3/K4, the QK-prep kernels, against their plain versions, at the Lorenz
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
    plain forward, at the Lorenz shape, ragged shapes and the bf16 tensor-core
-   tile edges (S = 1, 64, 65), ``real_len`` masks, head_dim 32 and 128 and
-   strided q/k/v; K6+K7 twice on the Lorenz inputs, bitwise equal;
+   tile edges (S = 1, 64, 65), ``real_len`` masks (one inside a tile at
+   head_dim 128), head_dim 32 and 128 and strided q/k/v; K6+K7 twice on the
+   Lorenz inputs, bitwise equal;
 7. every kernel's time beside its plain version's (CUDA events) at the
    shapes of the main paths, its bound (the larger of its operations over the
    card's peak rate for their type and its bytes over the memory rate) and,
    for K5-K7, the time of PyTorch's own flash attention
    (``scaled_dot_product_attention`` pinned to its flash backend) on the same
-   inputs as the yardstick; K6/K7 also with fp32 inputs;
+   inputs as the yardstick; K5-K7 also with fp32 inputs (yardstick: the
+   memory-efficient backend); K1/K2 also in microseconds per serial step and
+   K2 at 1, 2 and 4 rows per block;
 8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
    ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
@@ -42,11 +47,12 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    the step time of both in turns with their peak device memory, and a
    profile of the kernel path.
 
-The line before the last is ``{"kernels": [...]}`` with each kernel's launches
-in the Lorenz path, its largest error against the plain version, and its time
-beside the plain version's, its bound and the library call's at the Lorenz
-shapes (``library_ms`` null where no single PyTorch call computes the
-function); the last line is
+The card's ``nvidia-smi`` line (name, power limit) is printed again just
+before the results. The line before the last is ``{"kernels": [...]}`` with
+each kernel's launches in the Lorenz path, its largest error against the
+plain version, and its time beside the plain version's, its bound and the
+library call's at the Lorenz shapes (``library_ms`` null where no single
+PyTorch call computes the function); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -102,7 +108,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def phase_card(torch) -> str:
+def phase_card(torch) -> tuple[str, str]:
+    """The card's name and power limit as ``nvidia-smi`` gives them, and
+    ``torch.cuda.get_device_name(0)``."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -114,7 +122,7 @@ def phase_card(torch) -> str:
         f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     torch.cuda.synchronize()
-    return torch.cuda.get_device_name(0)
+    return smi, torch.cuda.get_device_name(0)
 
 
 def phase_build(torch) -> None:
@@ -237,6 +245,11 @@ def sampler_flop(spec, batch: int, steps: int) -> tuple[int, int]:
     return rows * (gates + out), rows * (3 * gates + 2 * out)
 
 
+def us_per_step(ms: float, steps: int) -> float:
+    """Microseconds per serial time step of a sampler call of ``ms``."""
+    return ms * 1e3 / steps
+
+
 def cuda_ms(torch, fn, n: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -254,6 +267,9 @@ SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     (LZ_BATCH, 2000, 3, 64, 2, "full", False, LZ_DT),   # the Lorenz path's shape
     (37, 7, 3, 32, 3, "full", True, DT),                # ragged tile, tril, three layers
     (16, 9, 2, 16, 1, "diag", True, DT),                # diag mode, one layer
+    # H=64 with three layers: K2's packed matrices (263 KB) exceed a block's
+    # shared memory, so its BPTT reads them from device memory (streaming)
+    (24, 40, 3, 64, 3, "full", True, DT),
 ]
 
 
@@ -278,9 +294,14 @@ def phase_forward(torch) -> float:
 
 
 def phase_backward(torch) -> float:
+    """K2 against autograd through the plain loop at every ``SHAPES`` row;
+    K2's BPTT at 1, 2 and 4 rows per block gives the same bits (each row's
+    arithmetic does not depend on its block); at the Lorenz shape two runs give
+    the same bits; the rows cover both the staged and the streaming path."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     worst = 0.0
+    paths = set()
     for i, (B, T, D, H, L, chol, clamp, dt) in enumerate(SHAPES):
         spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, chol, 20 + i, clamp, dt)
 
@@ -300,7 +321,32 @@ def phase_backward(torch) -> float:
             worst = max(worst, max_err(a, r, BWD_RTOL, BWD_ATOL, f"K2 d_{name} {SHAPES[i]}"))
         if float(got[2].abs().max()) == 0.0:
             raise AssertionError("K2: the noise cotangent is zero")
-        log(f"[K2] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}")
+
+        # the same call at each rows-per-block choice: bitwise equal
+        fwd = ss.sampler_forward(spec, w, x0, gc, eps, save_h=True)
+        tmaj = [c.transpose(0, 1).contiguous() for c in (cot[0][:, 1:], cot[1], cot[2])]
+        by_rows = [ss._backward_cuda(spec, w, x0, gc, eps, fwd, *tmaj, rows=r) for r in ss.BWD_ROWS]
+        torch.cuda.synchronize()
+        for r, other in zip(ss.BWD_ROWS[1:], by_rows[1:]):
+            for name, a, b in zip(("d_gc", "d_eps", "d_x0", *ss.SamplerWeights._fields),
+                                  (*by_rows[0][:3], *by_rows[0].weights), (*other[:3], *other.weights)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 {name} {SHAPES[i]}: rows=1 and rows={r} differ")
+        plans = {r: ss.backward_plan(spec, r, torch.cuda.current_device()) for r in ss.BWD_ROWS}
+        paths |= {p.staged for p in plans.values()}
+        log(f"[K2] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}; "
+            f"rows 1/2/4 bitwise equal; "
+            + "; ".join(f"rows={r}: {'staged' if p.staged else 'streaming'}, {p.threads} threads, "
+                        f"{p.smem_bytes} B shared" for r, p in plans.items()))
+        if i == 1:  # the Lorenz shape: a second run gives the same bits
+            again = grads(ss.sample_paths)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 d_{name} {SHAPES[i]}: two runs differ")
+            log(f"[K2] B={B} T={T}: two runs bitwise equal in every gradient")
+    if paths != {True, False}:
+        raise AssertionError(f"K2: SHAPES took only the {'staged' if True in paths else 'streaming'} path")
     return worst
 
 
@@ -372,6 +418,8 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     ((2, 4, 333, 32), "bfloat16", None, False),
     ((2, 4, 200, 128), "bfloat16", None, True),
     ((2, 4, 333, 64), "bfloat16", 250, True),
+    # real_len inside a 64-row tile (1000 = 15 * 64 + 40) at head_dim 128
+    ((2, 4, 2001, 128), "bfloat16", 1000, False),
 ]
 
 
@@ -421,10 +469,10 @@ def phase_flash(torch) -> tuple[float, float, float]:
 
 
 def phase_kernel_times(torch) -> dict:
-    """K1/K2 and their plain versions at the OU path's shape (B=128: 32
-    blocks of 4 rows) and at the Lorenz path's (B=32, T=2000, D=3); the
-    kernels again at B=528, one block per SM, to show how much of the card
-    B=128 leaves idle."""
+    """K1/K2 and their plain versions at the OU path's shape (B=128; K1 runs
+    32 blocks of 4 rows) and at the Lorenz path's (B=32, T=2000, D=3); K2 at
+    1, 2 and 4 rows per block at both; the kernels again at B=528 to show how
+    much of the card B=128 leaves idle. Each time also per serial step."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     times, bounds = {}, {}
@@ -438,6 +486,12 @@ def phase_kernel_times(torch) -> dict:
         bwd_args = (spec, w, x0, gc, eps, fwd, d_paths, d_means, d_cholv)
         times["fwd_ms" + sfx] = cuda_ms(torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 20)
         times["bwd_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_cuda(*bwd_args), 20)
+        if sfx != "_b528":
+            for r in ss.BWD_ROWS:
+                times[f"bwd_ms{sfx}_rows{r}"] = cuda_ms(
+                    torch, lambda: ss._backward_cuda(*bwd_args, rows=r), 20)
+            times["fwd_us_per_step" + sfx] = us_per_step(times["fwd_ms" + sfx], T)
+            times["bwd_us_per_step" + sfx] = us_per_step(times["bwd_ms" + sfx], T)
         if n_plain:
             times["fwd_plain_ms" + sfx] = cuda_ms(
                 torch, lambda: ss._forward_plain(spec, w, x0, gc, eps, save_h=True), n_plain)
@@ -450,12 +504,17 @@ def phase_kernel_times(torch) -> dict:
                                                 d_paths, d_means, d_cholv, grads), "fp32")
     log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2): "
         + json.dumps(times))
+    for k, key in (("K1", "fwd"), ("K2", "bwd")):
+        log(f"[steps] {k} at B=32 T=2000: {times[key + '_us_per_step_lorenz']:.3f} us/step "
+            f"against a roofline bound of {us_per_step(bounds[k]['bound_ms'], 2000):.4f} us/step; "
+            f"OU B=128 T=100: {times[key + '_us_per_step']:.3f} us/step")
     return times, bounds
 
 
-def library_attention(torch, q, k, v, do) -> dict:
+def library_attention(torch, q, k, v, do, backend: str = "FLASH_ATTENTION") -> dict:
     """The yardstick for K5-K7 (the port never calls it): PyTorch's
-    ``scaled_dot_product_attention`` pinned to its flash backend on the same
+    ``scaled_dot_product_attention`` pinned to one backend (flash for bf16;
+    the memory-efficient one for fp32, which flash does not take) on the same
     inputs, forward alone, and backward on one retained graph; with the
     device kernels one forward and backward ran."""
     import torch.nn.functional as F
@@ -463,7 +522,7 @@ def library_attention(torch, q, k, v, do) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    with sdpa_kernel(getattr(SDPBackend, backend)):
         fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20)
         out = F.scaled_dot_product_attention(*ins)
         bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, ins, do, retain_graph=True), 20)
@@ -471,7 +530,7 @@ def library_attention(torch, q, k, v, do) -> dict:
             torch.autograd.grad(F.scaled_dot_product_attention(*ins), ins, do)
             torch.cuda.synchronize()
     names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
-    log(f"[library] scaled_dot_product_attention, backend {SDPBackend.FLASH_ATTENTION.name} "
+    log(f"[library] scaled_dot_product_attention {q.dtype}, backend {backend} "
         f"(the only one enabled); device kernels of one forward + backward: "
         + "; ".join(n[:80] for n in names))
     return {"library_fwd_ms": fwd_ms, "library_bwd_ms": bwd_ms}
@@ -480,7 +539,9 @@ def library_attention(torch, q, k, v, do) -> dict:
 def phase_attention_times(torch) -> tuple[dict, dict]:
     """K3-K7 and their plain versions at the Lorenz shape [32, 4, 2001, 64]
     bf16, q/k/v strided views of one projection as on the main path, beside
-    their bounds and PyTorch's flash attention; K6/K7 again with fp32 inputs.
+    their bounds and PyTorch's flash attention; K5-K7 again with fp32 inputs
+    (the FMA kernels) beside their plain versions and PyTorch's
+    memory-efficient attention.
     The plain and the library backward serve K6 and K7 together, so both
     carry their time."""
     from viforsdes_tpu_torch.ops import flash_attention as fa
@@ -510,13 +571,19 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     }
     t.update(library_attention(torch, q, k, v, do))
 
-    # the same backward with fp32 inputs: the FMA kernels
+    # the same attention with fp32 inputs: the FMA kernels
     q32, k32, v32 = lorenz_heads(torch, shape, torch.float32, 80)
     do32 = do.float()
     o32, lse32 = fa._forward_cuda(q32, k32, v32, s, scale)
     operands32, dq32, dk32, dv32 = fa._backward_operands(q32, k32, v32, o32, lse32, do32, s, scale)
+    t["flash_fwd_fp32_ms"] = cuda_ms(torch, lambda: fa._forward_cuda(q32, k32, v32, s, scale), 3)
     t["flash_bwd_dkv_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 0), 3)
     t["flash_bwd_dq_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 1), 3)
+    t["flash_fwd_plain_fp32_ms"] = cuda_ms(torch, lambda: fa._forward_plain(q32, k32, v32, s, scale), 3)
+    t["flash_bwd_plain_fp32_ms"] = cuda_ms(
+        torch, lambda: fa._backward_plain(q32, k32, v32, o32, lse32, do32, s, scale), 3)
+    lib32 = library_attention(torch, q32, k32, v32, do32, "EFFICIENT_ATTENTION")
+    t["library_fwd_fp32_ms"], t["library_bwd_fp32_ms"] = lib32["library_fwd_ms"], lib32["library_bwd_ms"]
 
     product = 2 * b * h * s * s * d  # one [S, S] x D product
     qk_out = qp._forward_cuda(q, cos, sin, 1e-6)
@@ -529,6 +596,7 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         "K5": bound(2 * product, nbytes(q, k, v, o, lse), "bf16"),
         "K6": bound(4 * product, nbytes(q, k, v, do, lse_di, dk, dv), "bf16"),
         "K7": bound(3 * product, nbytes(q, k, v, do, lse_di, dq), "bf16"),
+        "K5 fp32": bound(2 * product, nbytes(q32, k32, v32, o32, lse32), "fp32"),
         "K6 fp32": bound(4 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dk32, dv32), "fp32"),
         "K7 fp32": bound(3 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dq32), "fp32"),
     }
@@ -928,7 +996,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import viforsdes_tpu_torch as vt
 
-    kind = phase_card(torch)
+    smi, kind = phase_card(torch)
     phase_build(torch)
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
@@ -966,6 +1034,7 @@ def main() -> int:
          att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
     ]
     ms_of = {row[0]: row[4] for row in rows}
+    ms_of["K5 fp32"] = att["flash_fwd_fp32_ms"]
     ms_of["K6 fp32"], ms_of["K7 fp32"] = att["flash_bwd_dkv_fp32_ms"], att["flash_bwd_dq_fp32_ms"]
     for k, bd in bounds.items():
         log(f"[bounds] {k}: {ms_of[k]:.4f} ms against a bound of {bd['bound_ms']:.4f} ms "
@@ -978,6 +1047,7 @@ def main() -> int:
          "bound_by": bounds[k]["bound_by"], "library_ms": library_ms}
         for k, name, src, replaces, ms, plain_ms, library_ms in rows
     ]
+    log(smi)  # again here, beside the results, since the build report is long
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

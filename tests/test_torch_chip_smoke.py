@@ -39,6 +39,7 @@ def _rows():
         (4, 6, 2, torch.bfloat16, "bf16", 0.265, "operations"),  # K6: q, k, v, do, lse, di -> dk, dv
         (3, 5, 2, torch.bfloat16, "bf16", 0.199, "operations"),  # K7: q, k, v, do, lse, di -> dq
         (4, 6, 2, torch.float32, "fp32", 3.92, "operations"),    # K6 on fp32 FMA
+        (2, 4, 1, torch.float32, "fp32", 1.96, "operations"),    # K5 on fp32 FMA
         (0, 2, 0, torch.bfloat16, "fp32", 0.0196, "bytes"),      # K3: 65.6 MB, x -> out
         (0, 3, 0, torch.bfloat16, "fp32", 0.0294, "bytes"),      # K4: 98.4 MB, x, dy -> dx
     ],
@@ -60,6 +61,18 @@ def test_sampler_flop_at_the_lorenz_shape():
     assert fwd == 64_000 * (74_880 + 1_152)
     assert bwd == 64_000 * (3 * 74_880 + 2 * 1_152)
     assert chip_smoke.bound(fwd, 0, "fp32")["bound_ms"] == pytest.approx(0.0726, rel=5e-3)
+
+
+@pytest.mark.parametrize(
+    "ms,steps,want_us",
+    [
+        (32.981, 2000, 16.4905),   # a 33 ms sampler call at T=2000: 16.5 us a step
+        (10.429, 2000, 5.2145),    # a 10.4 ms one: 5.2 us a step
+        (0.0726, 2000, 0.0363),    # K1's roofline bound at B=32, spread over the steps
+    ],
+)
+def test_us_per_step_at_the_lorenz_shape(ms, steps, want_us):
+    assert chip_smoke.us_per_step(ms, steps) == pytest.approx(want_us, rel=1e-9)
 
 
 def test_nbytes_walks_containers_and_skips_the_rest():

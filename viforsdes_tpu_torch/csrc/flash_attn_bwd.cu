@@ -189,17 +189,6 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;  // output rows of a block, 16 per warp
-
-// True when every (query, key) pair of query rows [q0, q1) and key rows
-// [k0, k1) is visible: all rows below S and all on one side of real_len.
-__device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1, int S, int real_len) {
-  if (q1 > S || k1 > S) return false;
-  return max(q1, k1) <= real_len || min(q0, k0) >= real_len;
-}
-
 // Blocks an SM must hold at once (the register cap of __launch_bounds__):
 // at head_dim <= 64, K6 capped at 170 registers (3 blocks) and K7 at 128 (4)
 // run faster for a few bytes of spill; at head_dim 128 the cap spills the

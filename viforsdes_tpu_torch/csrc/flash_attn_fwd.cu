@@ -14,18 +14,35 @@
 // products per layer (131 GFLOP, 0.133 ms at 989 TFLOP/s of bf16 tensor
 // cores), against 98 MB of q, k, v in bf16 (3 x 32.8 MB; 0.03 ms at 3.35 TB/s).
 //
-// Design: one block per (64-row q tile, head, batch); the Pallas grid's
-// sequential kv axis becomes a loop over 64-row kv tiles inside the block.
-// q stays in shared memory for the whole loop; each kv tile is converted to
-// fp32 on load. Both products are fp32 FMA over shared-memory tiles with a
-// 4 x 4 register tile per thread (no tensor cores in this version), so the
-// fp32 path agrees with an fp32 reference. The ragged tail (S = 2001 is not a
-// multiple of 64) is zero-filled on load and masked like any other key.
+// Both designs give a block 64 q rows and turn the Pallas grid's sequential
+// kv axis into a loop over 64-row kv tiles inside the block.
+//
+// bf16 inputs (the main path) run on the tensor cores, mma.sync m16n8k16 with
+// fp32 accumulators (flash_attn_mma.cuh): four warps, each owning 16 q rows.
+// q arrives once by cp.async and stays in registers as A fragments; k and v
+// stream through two cp.async stages (one barrier per tile). s = q k^T stays
+// in the accumulators; the online softmax runs in fragment coordinates (a
+// lane holds rows g and g + 8; a row's columns lie in the four lanes of a
+// quad, so its max is a local max and two shuffles), in base 2 with the scale
+// folded into log2(e). p is added to l unrounded and rounded to bf16 as it is
+// packed into the A fragment of o += p v, v read transposed by ldmatrix: p
+// never leaves registers. l stays a per-lane partial sum until the epilogue.
+// Masks apply in fragment coordinates, skipped on tiles wholly inside one
+// segment; lse is stored in natural-log units, as the backward reads it.
+//
+// fp32 inputs keep the first design, fp32-exact: tiles converted to fp32 in
+// shared memory, both products fp32 FMA over 4 x 4 register tiles, p through
+// shared memory. The ragged tail (S = 2001 is not a multiple of 64) is
+// zero-filled on load and masked like any other key in both.
+
+#include <type_traits>
 
 #include "flash_attn.cuh"
+#include "flash_attn_mma.cuh"
 
 namespace flash {
 
+// K5 for fp32 inputs: fp32 FMA.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   constexpr int DPT = D / 16;
@@ -108,14 +125,185 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------- bf16 path
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct FwdMma {
+  static constexpr int kLd = D + mma::kPad;
+  static constexpr int kKv = 64;  // kv rows per streamed tile
+  static constexpr size_t kSmem = sizeof(mma::bf16) * (kMmaRows + 4 * kKv) * kLd;
+};
+
+// K5 on the tensor cores: o and lse of 64 q rows, 16 per warp.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) fwd_mma_kernel(FwdArgs a) {
+  using mma::bf16;
+  constexpr int LD = FwdMma<D>::kLd, BK = FwdMma<D>::kKv;
+  constexpr int NK = BK / 8, ND = D / 8, KD = D / 16;  // n-tiles over kv, over d; k-steps over d
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [64][LD]       read once into registers
+  bf16* k_s = q_s + kMmaRows * LD;                 // [2][BK][LD]    two stages
+  bf16* v_s = k_s + 2 * BK * LD;                   // [2][BK][LD]
+
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int S = a.S, wrow = warp * 16;
+  const float scale2 = a.scale * kLog2e;  // s in base-2 units
+
+  auto load_kv_tile = [&](int stage, int kv0) {
+    mma::load_rows_async<BK, D, kMmaThreads>(k_s + stage * BK * LD, a.k, b, h, kv0, S);
+    mma::load_rows_async<BK, D, kMmaThreads>(v_s + stage * BK * LD, a.v, b, h, kv0, S);
+  };
+
+  mma::load_rows_async<kMmaRows, D, kMmaThreads>(q_s, a.q, b, h, q0, S);
+  load_kv_tile(0, 0);
+  mma::cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+  }
+  // running max (base 2) and this lane's share of the running sum, rows g, g + 8
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+  uint32_t qa[KD][4];
+
+  const int n_tiles = (S + BK - 1) / BK;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1, kv0 = j * BK;
+    mma::cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1's stage
+    if (j + 1 < n_tiles) load_kv_tile(st ^ 1, kv0 + BK);
+    mma::cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mma::ldsm_x4(qa[kk], mma::frag_rows16<LD>(q_s, wrow, kk * 16, lane));
+      }
+    }
+    const bf16* kt = k_s + st * BK * LD;
+    const bf16* vt = v_s + st * BK * LD;
+
+    // s = q k^T: rows are this warp's q rows, columns kv
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t kb[4];
+        mma::ldsm_x4(kb, mma::frag_cols16<LD>(kt, n * 8, kk * 16, lane));
+        mma::mma_16816(s[n], qa[kk], kb[0], kb[1]);
+        mma::mma_16816(s[n + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+
+    // scale and mask, then the row max over the tile and the quad
+    const bool masked = !all_visible(q0, q0 + kMmaRows, kv0, kv0 + BK, S, a.real_len);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + wrow + g + 8 * (i >> 1);
+        const int kv = kv0 + n * 8 + c2 + (i & 1);
+        const bool keep = !masked || visible(row, kv, S, a.real_len);
+        s[n][i] = keep ? s[n][i] * scale2 : kMaskValue;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      alpha[half] = exp2f(m[half] - mx[half]);  // 0 on the first tile (m = -inf)
+      m[half] = mx[half];
+      l[half] *= alpha[half];
+    }
+
+    // p = exp(s - m) into s, summed into l unrounded
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - m[i >> 1]);
+        l[i >> 1] += s[n][i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+    }
+
+    // o += bf16(p) v: A from registers, v read transposed
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      mma::a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vb[4];
+        mma::ldsm_x4_t(vb, mma::frag_rows16<LD>(vt, kk * 16, n * 8, lane));
+        mma::mma_16816(o[n], pa, vb[0], vb[1]);
+        mma::mma_16816(o[n + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    inv[half] = l[half] == 0.0f ? 1.0f : 1.0f / l[half];  // the l == 0 guard
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] *= inv[i >> 1];
+  }
+  mma::store_rows16<ND>(a.o, b, h, q0 + wrow, S, o, lane);
+  if (lane % 4 == 0) {
+    const long long bh = static_cast<long long>(b) * a.H + h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + wrow + g + 8 * half;
+      if (row < S) a.lse[bh * S + row] = m[half] * kLn2 + logf(l[half]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dispatch
+
+// bf16 inputs take the tensor-core kernel, fp32 inputs the FMA kernel.
 template <typename T, int D>
 cudaError_t launch_typed(const FwdArgs& a, cudaStream_t stream) {
-  auto kernel = fwd_kernel<T, D>;
-  const size_t smem = sizeof(float) * (2 * D * kLdt + kTile * D + kTile * kLdt);
-  cudaError_t err = attn::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    auto kernel = fwd_mma_kernel<D>;
+    const size_t smem = FwdMma<D>::kSmem;
+    cudaError_t err = attn::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.H, a.B);
+    kernel<<<grid, kMmaThreads, smem, stream>>>(a);
+  } else {
+    auto kernel = fwd_kernel<T, D>;
+    const size_t smem = sizeof(float) * (2 * D * kLdt + kTile * D + kTile * kLdt);
+    cudaError_t err = attn::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 

@@ -10,9 +10,10 @@
 
 namespace sde_sampler {
 
-// Batch rows one block carries through the whole time loop. Each thread keeps
-// ROWS accumulators per gate column, so the weight element it loads is used
-// ROWS times. B=128 gives 32 blocks.
+// Batch rows one K1 block carries through the whole time loop. Each thread
+// keeps ROWS accumulators per gate column, so the weight element it loads is
+// used ROWS times. B=128 gives 32 blocks. (K2 takes its rows per block from
+// the caller.)
 constexpr int ROWS = 4;
 
 // Shared memory a block may use without opting in.
@@ -26,6 +27,22 @@ inline int threads_for(int gate_cols) {
   if (n < 64) n = 64;
   if (n > 1024) n = 1024;
   return n;
+}
+
+// 4 bytes global -> shared without holding the thread; zero-filled when !valid
+// (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <typename Kernel>

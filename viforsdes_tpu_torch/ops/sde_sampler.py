@@ -7,10 +7,11 @@ sampler rolls the head's L-layer GRU and the Euler recurrence
 
 - ``sampler_forward`` (K1, ``csrc/sde_sampler_fwd.cu``): paths, raw outputs,
   clamped Cholesky values and (for training) h of every layer;
-- ``sampler_backward`` (K2, ``csrc/sde_sampler_bwd.cu``): reverse-time BPTT that
-  recomputes the gates from the stashed h, applies the ``lower_bound`` rule to
-  the summed Cholesky cotangent, and returns d_gates_const, d_eps, dx0 and
-  every weight gradient;
+- ``sampler_backward`` (K2, ``csrc/sde_sampler_bwd.cu``): a parallel pass that
+  recomputes every step's gates from the stashed h, then reverse-time BPTT
+  that applies the ``lower_bound`` rule to the summed Cholesky cotangent, and
+  the weight gradients; returns d_gates_const, d_eps, dx0 and every weight
+  gradient;
 - ``FusedPathSampler``: the ``torch.autograd.Function`` joining the two.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
@@ -387,6 +388,70 @@ def _weight_grad(
     raise_on(err, "sde_sampler_weight_grad")
 
 
+class BackwardPlan(NamedTuple):
+    """How K2's BPTT kernel runs for a shape (``sde_sampler_bwd_plan``): the
+    row strides of the packed matrices, whether they are staged in shared
+    memory (else read from device memory: the streaming path), threads and
+    shared memory per block."""
+
+    ld0: int
+    ld1: int
+    staged: bool
+    threads: int
+    smem_bytes: int
+    packed_floats: int
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(spec: SamplerSpec, rows: int, device_index: int) -> BackwardPlan:
+    """K2's launch for ``spec`` at ``rows`` batch rows per block, chosen by
+    shape alone: staged when the packed matrices fit the card's opt-in shared
+    memory."""
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(device_index):
+        err = SDE_SAMPLER.get().sde_sampler_bwd_plan(
+            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, rows, ctypes.addressof(out))
+    raise_on(err, "sde_sampler_bwd_plan")
+    ld0, ld1, staged, threads, smem, floats = out
+    return BackwardPlan(ld0, ld1, bool(staged), threads, smem, floats)
+
+
+# Batch rows per K2 block that the kernel is built for. One reverse step takes
+# longer the more rows a block carries (PERF.md, section 6), so the fewest
+# rows win as long as the blocks fit in one wave.
+BWD_ROWS = (1, 2, 4)
+
+
+def backward_rows(batch: int, n_sms: int) -> int:
+    """Rows per K2 block: the fewest that keep the blocks within one wave on
+    ``n_sms`` multiprocessors."""
+    for rows in BWD_ROWS:
+        if -(-batch // rows) <= n_sms:
+            return rows
+    return BWD_ROWS[-1]
+
+
+def pack_bptt_weights(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
+    """The matrices of K2's transposed matvecs, one ``[3H, ld]`` block per
+    layer with ``W_hh^T`` in columns ``0..H-1`` and the matrix that sends the
+    cotangent down beside it (``W_x^T`` for layer 0, ``W_ih^T`` above), zero
+    in the padding columns, flattened in layer order."""
+    h = spec.hidden_dim
+    blocks = []
+    for layer in range(spec.num_layers):
+        ld = plan.ld0 if layer == 0 else plan.ld1
+        w_hh = w.w_hh0 if layer == 0 else w.w_hh_st[layer - 1]
+        w_down = w.w_x if layer == 0 else w.w_ih_st[layer - 1]
+        block = w_hh.new_zeros((3 * h, ld))
+        block[:, :h] = w_hh.t()
+        block[:, h : h + w_down.shape[0]] = w_down.t()
+        blocks.append(block.reshape(-1))
+    packed = torch.cat(blocks)
+    if packed.numel() != plan.packed_floats:
+        raise ValueError(f"packed K2 weights: {packed.numel()} floats, the plan wants {plan.packed_floats}")
+    return packed
+
+
 def _backward_cuda(
     spec: SamplerSpec,
     w: SamplerWeights,
@@ -397,6 +462,7 @@ def _backward_cuda(
     d_paths: Tensor,
     d_means: Tensor,
     d_cholv: Tensor,
+    rows: int | None = None,
 ) -> SamplerGrads:
     n_steps, batch = gc.shape[:2]
     d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
@@ -414,22 +480,23 @@ def _backward_cuda(
     _check("d_means", d_means, (n_steps, batch, d), dev)
     _check("d_cholv", d_cholv, (n_steps, batch, spec.n_tril), dev)
     _check_weights(spec, w, dev)
+    if rows is None:
+        rows = backward_rows(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if rows not in BWD_ROWS:
+        raise ValueError(f"rows per K2 block must be one of {BWD_ROWS}, got {rows}")
     lib = SDE_SAMPLER.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rows, cols = _int_tables(spec, dev)
+    rows_t, cols_t = _int_tables(spec, dev)
+    plan = backward_plan(spec, rows, dev.index)
 
     x_in = torch.cat([x0[None], fwd.paths[:-1]])
-    transposed = [
-        w.w_x.t().contiguous(),
-        w.w_hh0.t().contiguous(),
-        w.w_ih_st.transpose(1, 2).contiguous(),
-        w.w_hh_st.transpose(1, 2).contiguous(),
-        w.w_out.t().contiguous(),
-    ]
+    w_bptt = pack_bptt_weights(spec, w, plan)
+    w_outT = w.w_out.t().contiguous()
 
     def empty(*shape: int) -> Tensor:
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    acts = empty(n_layers, n_steps, batch, 4 * h)  # r, z, n, n_hh of every step and layer
     d_gc = empty(n_steps, batch, g3)
     d_eps = empty(n_steps, batch, d)
     d_x0 = empty(batch, d)
@@ -439,11 +506,11 @@ def _backward_cuda(
     err = lib.sde_sampler_bwd(
         gc.data_ptr(), eps.data_ptr(), x_in.data_ptr(), fwd.h_all.data_ptr(),
         fwd.raw.data_ptr(), d_paths.data_ptr(), d_means.data_ptr(), d_cholv.data_ptr(),
-        *(_ptr(t) for t in w[:7]), *(t.data_ptr() for t in transposed),
-        rows.data_ptr(), cols.data_ptr(),
+        *(_ptr(t) for t in w[:7]), w_bptt.data_ptr(), w_outT.data_ptr(),
+        rows_t.data_ptr(), cols_t.data_ptr(), acts.data_ptr(),
         d_gc.data_ptr(), d_eps.data_ptr(), d_x0.data_ptr(), d_gh.data_ptr(),
         _ptr(d_gi), d_out.data_ptr(),
-        batch, n_steps, d, h, n_layers, spec.n_tril, *_scalars(spec), stream,
+        batch, n_steps, d, h, n_layers, spec.n_tril, rows, *_scalars(spec), stream,
     )
     raise_on(err, "sde_sampler_bwd")
 
@@ -565,6 +632,10 @@ __all__ = [
     "FusedPathSampler",
     "FORWARD_LAUNCHES",
     "BACKWARD_LAUNCHES",
+    "BackwardPlan",
+    "backward_plan",
+    "backward_rows",
+    "pack_bptt_weights",
     "prep_weights",
     "sampler_forward",
     "sampler_backward",
