@@ -10,7 +10,10 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    per source, all at once; cached in ``viforsdes_tpu_torch/_build/``) and
    print the compiler's register and spill report;
 3. K1, the path-sampler forward kernel, against its plain PyTorch version,
-   at the OU and Lorenz-63 shapes and two ragged ones;
+   at the OU and Lorenz-63 shapes and three ragged ones, on both of its
+   plans (weights staged in shared memory, or streamed at H=64 with three
+   layers); bitwise equal at 1, 2 and 4 rows per block and over two runs at
+   the Lorenz shape;
 4. K2, the path-sampler backward kernels, against autograd through the plain
    version, including Cholesky diagonals at and below the clamp and a
    non-zero noise cotangent, on both of its paths (weights staged in shared
@@ -30,8 +33,9 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    for K5-K7, the time of PyTorch's own flash attention
    (``scaled_dot_product_attention`` pinned to its flash backend) on the same
    inputs as the yardstick; K5-K7 also with fp32 inputs (yardstick: the
-   memory-efficient backend); K1/K2 also in microseconds per serial step and
-   K2 at 1, 2 and 4 rows per block;
+   memory-efficient backend); K1/K2 also in microseconds per serial step,
+   both at 1, 2 and 4 rows per block and K1 on its streaming plan; K3/K4 as
+   the median of five windows that each start with a cold L2;
 8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
    ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
@@ -250,9 +254,15 @@ def us_per_step(ms: float, steps: int) -> float:
     return ms * 1e3 / steps
 
 
-def cuda_ms(torch, fn, n: int) -> float:
+def cuda_ms(torch, fn, n: int, warm_s: float = 0.1) -> float:
+    """ms per call of ``fn`` over ``n`` calls (CUDA events), after calling it
+    for at least ``warm_s`` seconds so that the card's clocks have risen."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
@@ -262,21 +272,69 @@ def cuda_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+COLD_WINDOWS = 5
+COLD_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
+
+
+def cold_windows_ms(torch, fn, n: int) -> list[float]:
+    """ms per launch of ``fn`` over ``COLD_WINDOWS`` windows of ``n``
+    launches (CUDA events), each window after a write of
+    ``COLD_FLUSH_BYTES``, so that it starts with a cold L2."""
+    fn()
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    for i in range(COLD_WINDOWS):
+        flush.fill_(float(i))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / n)
+    return out
+
+
 SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     (BATCH, 100, 1, 64, 2, "full", False, DT),          # the OU path's shape
     (LZ_BATCH, 2000, 3, 64, 2, "full", False, LZ_DT),   # the Lorenz path's shape
     (37, 7, 3, 32, 3, "full", True, DT),                # ragged tile, tril, three layers
     (16, 9, 2, 16, 1, "diag", True, DT),                # diag mode, one layer
-    # H=64 with three layers: K2's packed matrices (263 KB) exceed a block's
-    # shared memory, so its BPTT reads them from device memory (streaming)
+    # H=64 with three layers: K1's and K2's packed weights exceed a block's
+    # shared memory, so both read them from device memory (streaming)
     (24, 40, 3, 64, 3, "full", True, DT),
+    # H=96: K1's build for more than 8 warps of units (64 registers a thread)
+    (9, 11, 2, 96, 2, "full", True, DT),
 ]
 
 
+def same_bits(outs, what: str) -> None:
+    """Every output of ``outs`` (name -> tuple of tensors or None) equals the
+    first's, bit for bit."""
+    import torch
+
+    names = list(outs)
+    for other in names[1:]:
+        for a, b in zip(outs[names[0]], outs[other]):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{what}: {names[0]} and {other} differ")
+
+
+def plan_text(plan) -> str:
+    return (f"{'staged' if plan.staged else 'streaming'}, {plan.threads} threads, "
+            f"{plan.smem_bytes} B shared")
+
+
 def phase_forward(torch) -> float:
+    """K1 against the plain loop at every ``SHAPES`` row; K1 at 1, 2 and 4
+    rows per block gives the same bits (paths, raw, h_all: each row's
+    arithmetic does not depend on its block); at the Lorenz shape two runs
+    give the same bits; the rows cover both the staged and the streaming
+    plan."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     worst = 0.0
+    plans_seen = set()
     for i, (B, T, D, H, L, chol, clamp, dt) in enumerate(SHAPES):
         spec, w, x0, gc, eps, _ = sampler_case(torch, B, T, D, H, L, chol, 10 + i, clamp, dt)
         for save_h in (False, True):
@@ -289,7 +347,23 @@ def phase_forward(torch) -> float:
                     continue
                 e = max_err(a, r, FWD_RTOL, FWD_ATOL, f"K1 {name} {SHAPES[i]}")
                 worst = max(worst, e)
-        log(f"[K1] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}")
+        by_rows = {r: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True, rows=r) for r in ss.ROWS_PER_BLOCK}
+        torch.cuda.synchronize()
+        same_bits({f"rows={r}": (o.paths, o.raw, o.h_all) for r, o in by_rows.items()}, f"K1 {SHAPES[i]}")
+        plans = {r: ss.forward_plan(spec, r, torch.cuda.current_device()) for r in ss.ROWS_PER_BLOCK}
+        plans_seen |= {p.staged for p in plans.values()}
+        log(f"[K1] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}; "
+            f"rows 1/2/4 bitwise equal; "
+            + "; ".join(f"rows={r}: {plan_text(p)}" for r, p in plans.items()))
+        if i == 1:  # the Lorenz shape: a second run gives the same bits
+            again = ss._forward_cuda(spec, w, x0, gc, eps, save_h=True)
+            first = by_rows[ss.rows_per_block(B, torch.cuda.get_device_properties(0).multi_processor_count)]
+            torch.cuda.synchronize()
+            same_bits({"run 1": (first.paths, first.raw, first.h_all),
+                       "run 2": (again.paths, again.raw, again.h_all)}, f"K1 {SHAPES[i]}")
+            log(f"[K1] B={B} T={T}: two runs bitwise equal in paths, raw, h_all")
+    if plans_seen != {True, False}:
+        raise AssertionError(f"K1: SHAPES took only the {'staged' if True in plans_seen else 'streaming'} plan")
     return worst
 
 
@@ -325,14 +399,14 @@ def phase_backward(torch) -> float:
         # the same call at each rows-per-block choice: bitwise equal
         fwd = ss.sampler_forward(spec, w, x0, gc, eps, save_h=True)
         tmaj = [c.transpose(0, 1).contiguous() for c in (cot[0][:, 1:], cot[1], cot[2])]
-        by_rows = [ss._backward_cuda(spec, w, x0, gc, eps, fwd, *tmaj, rows=r) for r in ss.BWD_ROWS]
+        by_rows = [ss._backward_cuda(spec, w, x0, gc, eps, fwd, *tmaj, rows=r) for r in ss.ROWS_PER_BLOCK]
         torch.cuda.synchronize()
-        for r, other in zip(ss.BWD_ROWS[1:], by_rows[1:]):
+        for r, other in zip(ss.ROWS_PER_BLOCK[1:], by_rows[1:]):
             for name, a, b in zip(("d_gc", "d_eps", "d_x0", *ss.SamplerWeights._fields),
                                   (*by_rows[0][:3], *by_rows[0].weights), (*other[:3], *other.weights)):
                 if not torch.equal(a, b):
                     raise AssertionError(f"K2 {name} {SHAPES[i]}: rows=1 and rows={r} differ")
-        plans = {r: ss.backward_plan(spec, r, torch.cuda.current_device()) for r in ss.BWD_ROWS}
+        plans = {r: ss.backward_plan(spec, r, torch.cuda.current_device()) for r in ss.ROWS_PER_BLOCK}
         paths |= {p.staged for p in plans.values()}
         log(f"[K2] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}; "
             f"rows 1/2/4 bitwise equal; "
@@ -469,10 +543,12 @@ def phase_flash(torch) -> tuple[float, float, float]:
 
 
 def phase_kernel_times(torch) -> dict:
-    """K1/K2 and their plain versions at the OU path's shape (B=128; K1 runs
-    32 blocks of 4 rows) and at the Lorenz path's (B=32, T=2000, D=3); K2 at
-    1, 2 and 4 rows per block at both; the kernels again at B=528 to show how
-    much of the card B=128 leaves idle. Each time also per serial step."""
+    """K1/K2 and their plain versions at the OU path's shape (B=128) and at
+    the Lorenz path's (B=32, T=2000, D=3); K1 and K2 at 1, 2 and 4 rows per
+    block at both, K1 also on its streaming plan (at 1 and 4 rows); the
+    kernels again at B=528
+    (4 rows per block, all SMs busy); K1 at the Lorenz shape with one layer
+    and with H=8. Each time also per serial step."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     times, bounds = {}, {}
@@ -487,9 +563,15 @@ def phase_kernel_times(torch) -> dict:
         times["fwd_ms" + sfx] = cuda_ms(torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 20)
         times["bwd_ms" + sfx] = cuda_ms(torch, lambda: ss._backward_cuda(*bwd_args), 20)
         if sfx != "_b528":
-            for r in ss.BWD_ROWS:
+            for r in ss.ROWS_PER_BLOCK:
+                times[f"fwd_ms{sfx}_rows{r}"] = cuda_ms(
+                    torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True, rows=r), 20)
                 times[f"bwd_ms{sfx}_rows{r}"] = cuda_ms(
                     torch, lambda: ss._backward_cuda(*bwd_args, rows=r), 20)
+            times["fwd_ms" + sfx + "_streaming"] = cuda_ms(
+                torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True, staged=False), 20)
+            times["fwd_ms" + sfx + "_rows4_streaming"] = cuda_ms(
+                torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True, rows=4, staged=False), 20)
             times["fwd_us_per_step" + sfx] = us_per_step(times["fwd_ms" + sfx], T)
             times["bwd_us_per_step" + sfx] = us_per_step(times["bwd_ms" + sfx], T)
         if n_plain:
@@ -502,7 +584,13 @@ def phase_kernel_times(torch) -> dict:
             bounds["K1"] = bound(flop_f, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all), "fp32")
             bounds["K2"] = bound(flop_b, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all,
                                                 d_paths, d_means, d_cholv, grads), "fp32")
-    log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2): "
+    # K1's step at the Lorenz shape with one layer, and with 8 hidden units:
+    # what a layer costs, and what is left when the matvecs are tiny
+    for H, L in ((64, 1), (8, 2)):
+        spec, w, x0, gc, eps, _ = sampler_case(torch, LZ_BATCH, 2000, 3, H, L, "full", 31, dt=LZ_DT)
+        times[f"fwd_ms_lorenz_H{H}_L{L}"] = cuda_ms(
+            torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 20)
+    log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2 unless named): "
         + json.dumps(times))
     for k, key in (("K1", "fwd"), ("K2", "bwd")):
         log(f"[steps] {k} at B=32 T=2000: {times[key + '_us_per_step_lorenz']:.3f} us/step "
@@ -556,10 +644,17 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     o, lse = fa._forward_cuda(q, k, v, s, scale)
     operands, dq, dk, dv = fa._backward_operands(q, k, v, o, lse, do, s, scale)
     lse_di = operands[1][4:]
+    qk_fwd = cold_windows_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50)
+    qk_bwd = cold_windows_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50)
+    log(f"[K3/K4] {COLD_WINDOWS} windows of 50 launches, each after a {COLD_FLUSH_BYTES >> 20} MB "
+        f"write: K3 median {statistics.median(qk_fwd):.4f} ms (min {min(qk_fwd):.4f}, max {max(qk_fwd):.4f}); "
+        f"K4 median {statistics.median(qk_bwd):.4f} ms (min {min(qk_bwd):.4f}, max {max(qk_bwd):.4f})")
     t = {
-        "qk_prep_fwd_ms": cuda_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50),
+        "qk_prep_fwd_ms": statistics.median(qk_fwd),
+        "qk_prep_fwd_windows_ms": qk_fwd,
         "qk_prep_fwd_plain_ms": cuda_ms(torch, lambda: qp._forward_plain(q, cos, sin, 1e-6), 20),
-        "qk_prep_bwd_ms": cuda_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50),
+        "qk_prep_bwd_ms": statistics.median(qk_bwd),
+        "qk_prep_bwd_windows_ms": qk_bwd,
         "qk_prep_bwd_plain_ms": cuda_ms(torch, lambda: qp._backward_plain(q, cos, sin, do, 1e-6), 20),
         "flash_fwd_ms": cuda_ms(torch, lambda: fa._forward_cuda(q, k, v, s, scale), 20),
         "flash_fwd_plain_ms": cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5),

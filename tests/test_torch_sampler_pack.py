@@ -1,6 +1,7 @@
 """The host side of K2's BPTT launch (``ops/sde_sampler.py``): the packed
 matrices its transposed matvecs read, and the rows per block it picks by
-batch. The kernel itself runs only on the card (``chip_smoke.py``)."""
+batch (the rule K1 shares). The kernel itself runs only on the card
+(``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
@@ -61,4 +62,4 @@ def test_pack_refuses_a_plan_of_another_size():
     [(1, 1), (32, 1), (128, 1), (132, 1), (133, 2), (264, 2), (265, 4), (528, 4), (5000, 4)],
 )
 def test_backward_rows_keeps_one_wave(batch, want):
-    assert ss.backward_rows(batch, n_sms=132) == want
+    assert ss.rows_per_block(batch, n_sms=132) == want

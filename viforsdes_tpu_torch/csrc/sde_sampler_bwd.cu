@@ -18,9 +18,10 @@
 //  1. gates_kernel: the gate recompute does not depend on the reverse chain
 //     (it reads h_{t-1}, h_t, x_t and gates_const[t], all known from the
 //     forward), so it runs first over all T*B rows in parallel, 32 rows a
-//     block, one thread per gate column, and writes r, z, n and n_hh of every
-//     step and layer to `acts` [L, T, B, 4H]. Its sums run in the order of
-//     the forward's, so the gates are K1's to the bit.
+//     block, kGateParts lanes per gate column, and writes r, z, n and n_hh of every
+//     step and layer to `acts` [L, T, B, 4H]. Its sums and nonlinearities are
+//     K1's (`gate_sums`, `gru_gates` in sde_sampler.cuh), so the gates are
+//     K1's to the bit.
 //  2. bptt_kernel: one block per `rows` batch rows walks the reverse steps.
 //     - The matrices the loop reads (per layer, W_hh^T beside W_ih^T or
 //       W_x^T, packed by the caller with a padded row stride) are staged in
@@ -82,9 +83,10 @@ struct BwdArgs {
 
 // ------------------------------------------------------------- gate pass
 
-constexpr int kGateRows = 32;  // (t, b) rows of a gate-pass block
+constexpr int kGateRows = 32;   // (t, b) rows of a gate-pass block
+constexpr int kGateWarps = 24;  // at most
 
-__global__ void gates_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(32 * kGateWarps) gates_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int H = a.H, G = 3 * a.H, L = a.L, D = a.D, LH = a.L * a.H;
   const int IN = D > H ? D : H;
@@ -95,6 +97,7 @@ __global__ void gates_kernel(BwdArgs a) {
   float* gh_s = gi_s + kGateRows * G;  // [RB][G]
   const int R0 = blockIdx.x * kGateRows;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
 
   for (int l = 0; l < L; ++l) {
     const int in_dim = l == 0 ? D : H;
@@ -113,30 +116,33 @@ __global__ void gates_kernel(BwdArgs a) {
     const float* w_in = l == 0 ? a.w_x : a.w_ih_st + (size_t)(l - 1) * H * G;
     const float* w_h = l == 0 ? a.w_hh0 : a.w_hh_st + (size_t)(l - 1) * H * G;
     const float* b_h = l == 0 ? a.b_hh0 : a.b_hh_st + (size_t)(l - 1) * G;
-    for (int j = tid; j < G; j += nt) {
-      float ai[kGateRows], ah[kGateRows];
-      const float bh = b_h[j];
-      const float bi = l == 0 ? 0.0f : a.b_ih_st[(size_t)(l - 1) * G + j];
+    // kGateCols gate columns a warp, kGateParts lanes a column (K1's order)
+    for (int c0 = warp * kGateCols; c0 < G; c0 += n_warps * kGateCols) {
+      const int j = c0 + lane % kGateCols;
+      const bool live = j < G;
+      const bool writer = live && lane < kGateCols;
+      float acc[1][kGateRows][1];
+      const float* const in_v[1] = {in_s};
+      gate_sums<1, kGateRows, 1>(acc, in_v, IN, in_dim, [&](int i, float (&w)[1][1]) {
+        w[0][0] = live ? w_in[(size_t)i * G + j] : 0.0f;
+      });
+      if (writer) {
+        const float bi = l == 0 ? 0.0f : a.b_ih_st[(size_t)(l - 1) * G + j];
 #pragma unroll
-      for (int r = 0; r < kGateRows; ++r) {
-        const int R = R0 + r;
-        ai[r] = l == 0 ? (R < TB ? a.gc[(size_t)R * G + j] : 0.0f) : bi;
-        ah[r] = bh;
+        for (int r = 0; r < kGateRows; ++r) {
+          const int R = R0 + r;
+          const float base = l == 0 ? (R < TB ? a.gc[(size_t)R * G + j] : 0.0f) : bi;
+          gi_s[r * G + j] = base + acc[0][r][0];
+        }
       }
-      for (int k = 0; k < in_dim; ++k) {
-        const float w = w_in[(size_t)k * G + j];
+      const float* const hp_v[1] = {hp_s};
+      gate_sums<1, kGateRows, 1>(acc, hp_v, H, H, [&](int i, float (&w)[1][1]) {
+        w[0][0] = live ? w_h[(size_t)i * G + j] : 0.0f;
+      });
+      if (writer) {
+        const float bh = b_h[j];
 #pragma unroll
-        for (int r = 0; r < kGateRows; ++r) ai[r] = fmaf(in_s[r * IN + k], w, ai[r]);
-      }
-      for (int k = 0; k < H; ++k) {
-        const float w = w_h[(size_t)k * G + j];
-#pragma unroll
-        for (int r = 0; r < kGateRows; ++r) ah[r] = fmaf(hp_s[r * H + k], w, ah[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kGateRows; ++r) {
-        gi_s[r * G + j] = ai[r];
-        gh_s[r * G + j] = ah[r];
+        for (int r = 0; r < kGateRows; ++r) gh_s[r * G + j] = bh + acc[0][r][0];
       }
     }
     __syncthreads();
@@ -146,12 +152,10 @@ __global__ void gates_kernel(BwdArgs a) {
       if (R >= TB) continue;
       const float* gi = gi_s + r * G;
       const float* gh = gh_s + r * G;
-      const float rg = sigmoidf_(gi[k] + gh[k]);
-      const float zg = sigmoidf_(gi[H + k] + gh[H + k]);
-      const float n_hh = gh[2 * H + k];
-      const float ng = tanhf(gi[2 * H + k] + rg * n_hh);
+      float rg, zg, ng;
+      gru_gates(gi[k], gi[H + k], gi[2 * H + k], gh[k], gh[H + k], gh[2 * H + k], rg, zg, ng);
       float* out = a.acts + ((size_t)l * TB + R) * 4 * H;
-      out[k] = rg; out[H + k] = zg; out[2 * H + k] = ng; out[3 * H + k] = n_hh;
+      out[k] = rg; out[H + k] = zg; out[2 * H + k] = ng; out[3 * H + k] = gh[2 * H + k];
     }
     __syncthreads();  // before the next layer overwrites the tiles
   }
@@ -160,11 +164,6 @@ __global__ void gates_kernel(BwdArgs a) {
 // ------------------------------------------------------------ BPTT loop
 
 constexpr int kParts = 4;  // lanes per output column of a transposed matvec
-
-// Row stride of a packed matrix of n columns: at least n and 8 mod 32, so the
-// four parts of a warp (rows 4*jj + part, columns 8 apart in lanes) read 32
-// distinct banks.
-inline int packed_ld(int n) { return n <= 8 ? 8 : ((n - 8 + 31) / 32) * 32 + 8; }
 
 struct Plan {
   int ld0, ld1;   // row strides of the packed layer-0 and deeper matrices
@@ -191,9 +190,8 @@ inline cudaError_t make_plan(int D, int H, int L, int n_tril, int rows, Plan* p)
                       rows * (LH + 2 * G + 2 * (size_t)H + NO + D);
   const size_t base = sizeof(float) * work + sizeof(int) * 2 * n_tril;
   const size_t staged = base + sizeof(float) * (p->w_floats + NO * H);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t err = optin_smem(&optin);
   if (err != cudaSuccess) return err;
   p->staged = staged <= (size_t)optin ? 1 : 0;
   p->smem = p->staged ? staged : base;
@@ -518,7 +516,9 @@ extern "C" int sde_sampler_bwd(
   err = allow_smem(gates_kernel, smem_g);
   if (err != cudaSuccess) return (int)err;
   const int n_rows = T * B;
-  gates_kernel<<<(n_rows + kGateRows - 1) / kGateRows, threads_for(3 * H), smem_g, st>>>(a);
+  const int gate_warps = (3 * H + kGateCols - 1) / kGateCols;
+  const int gate_threads = 32 * (gate_warps < kGateWarps ? gate_warps : kGateWarps);
+  gates_kernel<<<(n_rows + kGateRows - 1) / kGateRows, gate_threads, smem_g, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

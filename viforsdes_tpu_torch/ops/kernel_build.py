@@ -142,7 +142,8 @@ SDE_SAMPLER = Library(
     "sde_sampler",
     ["sde_sampler_fwd.cu", "sde_sampler_bwd.cu"],
     {
-        "sde_sampler_fwd": [_p] * 17 + [_i] * 6 + [_f] * 3 + [_p],
+        "sde_sampler_fwd": [_p] * 9 + [_i] * 8 + [_f] * 3 + [_p],
+        "sde_sampler_fwd_plan": [_i] * 5 + [_p],
         "sde_sampler_bwd": [_p] * 26 + [_i] * 7 + [_f] * 3 + [_p],
         "sde_sampler_bwd_plan": [_i] * 5 + [_p],
         "sde_sampler_weight_grad": [_p, _i, _i, _i, _p, _i, _i, _i, _p, _i, _p, _p, _p],

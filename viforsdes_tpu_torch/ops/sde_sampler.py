@@ -334,10 +334,74 @@ def _scalars(spec: SamplerSpec) -> tuple[float, float, float]:
     return float(spec.time_step), math.sqrt(spec.time_step), float(spec.diag_min)
 
 
+class ForwardPlan(NamedTuple):
+    """How K1 runs for a shape (``sde_sampler_fwd_plan``): whether the packed
+    weights are staged in shared memory (else read from device memory: the
+    streaming path), threads and shared memory per block for either, and the
+    packed layout (floats, ``W_out^T`` row stride, units per packed row)."""
+
+    staged: bool
+    threads: int
+    smem_staged: int
+    smem_streaming: int
+    packed_floats: int
+    ld_out: int
+    units: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.smem_staged if self.staged else self.smem_streaming
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(spec: SamplerSpec, rows: int, device_index: int) -> ForwardPlan:
+    """K1's launch for ``spec`` at ``rows`` batch rows per block, chosen by
+    shape alone: staged when the packed weights fit the card's opt-in shared
+    memory. K1 takes at most 31 warps of 8 hidden units (H <= 248)."""
+    out = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(device_index):
+        err = SDE_SAMPLER.get().sde_sampler_fwd_plan(
+            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, rows, ctypes.addressof(out))
+    raise_on(err, f"sde_sampler_fwd_plan (H={spec.hidden_dim}; K1 takes H <= 248)")
+    staged, threads, smem_staged, smem_streaming, floats, ld_out, units = out
+    return ForwardPlan(bool(staged), threads, smem_staged, smem_streaming, floats, ld_out, units)
+
+
+def pack_forward_weights(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
+    """K1's weights, unit-major: per layer a ``[in + H + 2, units, 4]`` block
+    whose row i holds, for hidden unit k, the float4 ``{r, z, n, 0}`` of
+    columns ``k, H+k, 2H+k`` of ``W_in`` (rows ``0..in-1``; ``W_x`` for layer
+    0), then of ``W_hh`` (H rows), then of the input bias (zero for layer 0)
+    and the hidden bias; zero past unit H. Then ``W_out^T`` with row stride
+    ``plan.ld_out`` and ``b_out``, padded to whole float4s."""
+    h, n_out = spec.hidden_dim, spec.n_out
+    blocks = []
+    for layer in range(spec.num_layers):
+        w_in = w.w_x if layer == 0 else w.w_ih_st[layer - 1]
+        w_hh = w.w_hh0 if layer == 0 else w.w_hh_st[layer - 1]
+        b_in = torch.zeros_like(w.b_hh0) if layer == 0 else w.b_ih_st[layer - 1]
+        b_hh = w.b_hh0 if layer == 0 else w.b_hh_st[layer - 1]
+        rows = torch.cat([w_in, w_hh, b_in[None], b_hh[None]])  # [in + H + 2, 3H]
+        block = rows.new_zeros((rows.shape[0], plan.units, 4))
+        block[:, :h, :3] = rows.reshape(-1, 3, h).transpose(1, 2)
+        blocks.append(block.reshape(-1))
+    out = w.w_out.new_zeros((n_out, plan.ld_out))
+    out[:, :h] = w.w_out.t()
+    blocks.append(out.reshape(-1))
+    blocks.append(torch.cat([w.b_out, w.b_out.new_zeros(-n_out % 4)]))
+    packed = torch.cat(blocks)
+    if packed.numel() != plan.packed_floats:
+        raise ValueError(f"packed K1 weights: {packed.numel()} floats, the plan wants {plan.packed_floats}")
+    return packed
+
+
 def _forward_cuda(
     spec: SamplerSpec, w: SamplerWeights, x0: Tensor, gc: Tensor, eps: Tensor,
-    *, save_h: bool,
+    *, save_h: bool, rows: int | None = None, staged: bool | None = None,
 ) -> SamplerOutputs:
+    """K1 at ``rows`` batch rows per block (default: ``rows_per_block``) on
+    the plan by shape; ``staged`` asks for the staged or the streaming plan
+    (staged raises where the weights do not fit)."""
     n_steps, batch = gc.shape[:2]
     d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
     dev = x0.device
@@ -345,7 +409,13 @@ def _forward_cuda(
     _check("gates_const", gc, (n_steps, batch, 3 * h), dev)
     _check("eps", eps, (n_steps, batch, d), dev)
     _check_weights(spec, w, dev)
-    rows, cols = _int_tables(spec, dev)
+    if rows is None:
+        rows = rows_per_block(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows per K1 block must be one of {ROWS_PER_BLOCK}, got {rows}")
+    plan = forward_plan(spec, rows, dev.index)
+    packed = pack_forward_weights(spec, w, plan)
+    rows_t, cols_t = _int_tables(spec, dev)
     paths = torch.empty((n_steps, batch, d), dtype=torch.float32, device=dev)
     raw = torch.empty((n_steps, batch, spec.n_out), dtype=torch.float32, device=dev)
     h_all = (
@@ -354,9 +424,10 @@ def _forward_cuda(
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = SDE_SAMPLER.get().sde_sampler_fwd(
-        x0.data_ptr(), gc.data_ptr(), eps.data_ptr(), *(_ptr(t) for t in w),
-        rows.data_ptr(), cols.data_ptr(), paths.data_ptr(), raw.data_ptr(), _ptr(h_all),
-        batch, n_steps, d, h, n_layers, spec.n_tril, *_scalars(spec), stream,
+        x0.data_ptr(), gc.data_ptr(), eps.data_ptr(), packed.data_ptr(),
+        rows_t.data_ptr(), cols_t.data_ptr(), paths.data_ptr(), raw.data_ptr(), _ptr(h_all),
+        batch, n_steps, d, h, n_layers, spec.n_tril, rows, -1 if staged is None else int(staged),
+        *_scalars(spec), stream,
     )
     raise_on(err, "sde_sampler_fwd")
     FORWARD_LAUNCHES.count += 1
@@ -416,19 +487,19 @@ def backward_plan(spec: SamplerSpec, rows: int, device_index: int) -> BackwardPl
     return BackwardPlan(ld0, ld1, bool(staged), threads, smem, floats)
 
 
-# Batch rows per K2 block that the kernel is built for. One reverse step takes
-# longer the more rows a block carries (PERF.md, section 6), so the fewest
-# rows win as long as the blocks fit in one wave.
-BWD_ROWS = (1, 2, 4)
+# Batch rows per K1 and K2 block that the kernels are built for. One serial
+# step takes longer the more rows a block carries (PERF.md, section 6), so the
+# fewest rows win as long as the blocks fit in one wave.
+ROWS_PER_BLOCK = (1, 2, 4)
 
 
-def backward_rows(batch: int, n_sms: int) -> int:
-    """Rows per K2 block: the fewest that keep the blocks within one wave on
-    ``n_sms`` multiprocessors."""
-    for rows in BWD_ROWS:
+def rows_per_block(batch: int, n_sms: int) -> int:
+    """Rows per K1 and per K2 block: the fewest that keep the blocks within
+    one wave on ``n_sms`` multiprocessors."""
+    for rows in ROWS_PER_BLOCK:
         if -(-batch // rows) <= n_sms:
             return rows
-    return BWD_ROWS[-1]
+    return ROWS_PER_BLOCK[-1]
 
 
 def pack_bptt_weights(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
@@ -481,9 +552,9 @@ def _backward_cuda(
     _check("d_cholv", d_cholv, (n_steps, batch, spec.n_tril), dev)
     _check_weights(spec, w, dev)
     if rows is None:
-        rows = backward_rows(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if rows not in BWD_ROWS:
-        raise ValueError(f"rows per K2 block must be one of {BWD_ROWS}, got {rows}")
+        rows = rows_per_block(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows per K2 block must be one of {ROWS_PER_BLOCK}, got {rows}")
     lib = SDE_SAMPLER.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows_t, cols_t = _int_tables(spec, dev)
@@ -633,9 +704,13 @@ __all__ = [
     "FORWARD_LAUNCHES",
     "BACKWARD_LAUNCHES",
     "BackwardPlan",
+    "ForwardPlan",
+    "ROWS_PER_BLOCK",
     "backward_plan",
-    "backward_rows",
+    "forward_plan",
     "pack_bptt_weights",
+    "pack_forward_weights",
+    "rows_per_block",
     "prep_weights",
     "sampler_forward",
     "sampler_backward",
