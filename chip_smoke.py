@@ -10,10 +10,11 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    per source, all at once; cached in ``viforsdes_tpu_torch/_build/``) and
    print the compiler's register and spill report;
 3. K1, the path-sampler forward kernel, against its plain PyTorch version,
-   at the OU and Lorenz-63 shapes and three ragged ones, on both of its
-   plans (weights staged in shared memory, or streamed at H=64 with three
-   layers); bitwise equal at 1, 2 and 4 rows per block and over two runs at
-   the Lorenz shape;
+   at the OU and Lorenz-63 shapes, three ragged ones, the widest head it
+   takes (H=256) and the 32-dimensional state of ``examples/highdim_ou_dp.py``
+   (one row ragged), on both of its plans (weights staged in shared memory,
+   or streamed at H=64 with three layers); bitwise equal at 1, 2 and 4 rows
+   per block and over two runs at the Lorenz shape;
 4. K2, the path-sampler backward kernels, against autograd through the plain
    version, including Cholesky diagonals at and below the clamp and a
    non-zero noise cotangent, on both of its paths (weights staged in shared
@@ -34,8 +35,10 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    (``scaled_dot_product_attention`` pinned to its flash backend) on the same
    inputs as the yardstick; K5-K7 also with fp32 inputs (yardstick: the
    memory-efficient backend); K1/K2 also in microseconds per serial step,
-   both at 1, 2 and 4 rows per block and K1 on its streaming plan; K3/K4 as
-   the median of five windows that each start with a cold L2;
+   both at 1, 2 and 4 rows per block and K1 on its streaming plan, and both
+   beside their bound at the ``highdim_ou_dp.py`` shape (B=4096, T=500, D=32)
+   and at the Lorenz shape with the widest head (H=256); K3/K4 as the median
+   of five windows that each start with a cold L2;
 8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
    ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
@@ -49,7 +52,17 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    one step's ELBO and gradients through the kernels against the plain path
    (dense attention, unfused QK prep, ``sampler="scan"``) in fp32 and bf16;
    the step time of both in turns with their peak device memory, and a
-   profile of the kernel path.
+   profile of the kernel path. ``infer()`` pretrains theta first with
+   ``PretrainConfig()`` as ``examples/lorenz63.py`` does (the global sweep
+   and CEM, no kernel), and the phase prints that wall time and theta;
+10. the examples' path at ``examples/ornstein_uhlenbeck.py``'s configuration
+   (batch 128, SiT 256 x 4 x 8, GRU 64 x 2, ``PretrainConfig()``): ``infer()``
+   with the console on, 20 steps with a checkpoint every 10, then
+   ``summary(500)``, ``diagnostics()``, the summary table, ``plot(30)`` saved
+   to a file, ``save`` -> ``load`` (EMA leaves bitwise equal), and
+   ``infer(resume_from=)`` the step-10 checkpoint to 20 steps against the
+   unbroken ELBO history; the console and the plot need ``rich`` and
+   ``matplotlib``, and the phase says so on one line where one is absent.
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -178,8 +191,9 @@ def check_close(a, ref, dtype, fp32_bars, bf16_bar: float, what: str, floor: flo
     return max_err(a, ref, *fp32_bars, what, atol_floor=floor)
 
 
-def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT):
-    """Weights and streams for one sampler shape, on the card."""
+def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT, on_card=False):
+    """Weights and streams for one sampler shape, on the card; ``on_card``
+    draws the streams there (large shapes), else on the host."""
     from viforsdes_tpu_torch.config import HeadConfig
     from viforsdes_tpu_torch.inference.constants import DIAG_MIN
     from viforsdes_tpu_torch.models.head import DiffusionTransitionHead
@@ -199,14 +213,13 @@ def sampler_case(torch, B, T, D, H, L, cholesky, seed, clamp_cases=False, dt=DT)
     spec = head.spec(dt)
     w = prep_weights(spec, params)
     w = type(w)(*(t.cuda().contiguous() for t in w))
-    x0 = torch.randn(B, D, generator=gen).cuda()
-    gc = torch.randn(T, B, 3 * H, generator=gen).cuda()
-    eps = torch.randn(T, B, D, generator=gen).cuda()
-    cot = (
-        torch.randn(B, T + 1, D, generator=gen).cuda(),
-        torch.randn(B, T, D, generator=gen).cuda(),
-        torch.randn(B, T, spec.n_tril, generator=gen).cuda(),
-    )
+    sgen = torch.Generator(device="cuda").manual_seed(seed) if on_card else gen
+
+    def randn(*shape):
+        return torch.randn(shape, generator=sgen, device=sgen.device).cuda()
+
+    x0, gc, eps = randn(B, D), randn(T, B, 3 * H), randn(T, B, D)
+    cot = (randn(B, T + 1, D), randn(B, T, D), randn(B, T, spec.n_tril))
     return spec, w, x0, gc, eps, cot
 
 
@@ -305,7 +318,20 @@ SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     (24, 40, 3, 64, 3, "full", True, DT),
     # H=96: K1's build for more than 8 warps of units (64 registers a thread)
     (9, 11, 2, 96, 2, "full", True, DT),
+    # H=256: 32 warps of units fill 1024 threads, the last one also runs the
+    # output phase; K2's gate pass takes 16 rows a block
+    (6, 5, 3, 256, 2, "full", True, DT),
+    # D=32 (examples/highdim_ou_dp.py: 528 tril values, 560 outputs a row)
+    (48, 20, 32, 64, 2, "full", False, DT),
+    (13, 7, 32, 64, 2, "full", True, DT),
 ]
+
+# more sampler shapes for [times]/[steps], timed beside their bound:
+# label -> (B, T, D, H, L, dt)
+WIDE_SHAPES = {
+    "highdim": (4096, 500, 32, 64, 2, DT),        # examples/highdim_ou_dp.py on one card
+    "h256": (LZ_BATCH, 2000, 3, 256, 2, LZ_DT),   # the Lorenz shape with K1's widest head
+}
 
 
 def same_bits(outs, what: str) -> None:
@@ -590,13 +616,53 @@ def phase_kernel_times(torch) -> dict:
         spec, w, x0, gc, eps, _ = sampler_case(torch, LZ_BATCH, 2000, 3, H, L, "full", 31, dt=LZ_DT)
         times[f"fwd_ms_lorenz_H{H}_L{L}"] = cuda_ms(
             torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 20)
-    log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; H=64 L=2 unless named): "
-        + json.dumps(times))
+    wide = {label: wide_sampler_times(torch, label, *shape) for label, shape in WIDE_SHAPES.items()}
+    for w in wide.values():
+        times.update(w["times"])
+    log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; _highdim: B=4096 T=500 D=32; "
+        "_h256: B=32 T=2000 D=3 H=256; H=64 L=2 unless named): " + json.dumps(times))
     for k, key in (("K1", "fwd"), ("K2", "bwd")):
         log(f"[steps] {k} at B=32 T=2000: {times[key + '_us_per_step_lorenz']:.3f} us/step "
             f"against a roofline bound of {us_per_step(bounds[k]['bound_ms'], 2000):.4f} us/step; "
             f"OU B=128 T=100: {times[key + '_us_per_step']:.3f} us/step")
+        for label, (B, T, D, H, L, _) in WIDE_SHAPES.items():
+            bd, ms = wide[label]["bounds"][k], times[f"{key}_ms_{label}"]
+            log(f"[steps] {k} at B={B} T={T} D={D} H={H} L={L}: {ms:.3f} ms, "
+                f"{times[f'{key}_us_per_step_{label}']:.3f} us/step, against a bound of {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}: {bd['flop'] / 1e9:.2f} GFLOP fp32, {bd['bytes'] / 1e6:.1f} MB), "
+                f"{bd['bound_ms'] / ms:.4f} of the bound")
     return times, bounds
+
+
+def wide_sampler_times(torch, label: str, B: int, T: int, D: int, H: int, L: int, dt: float) -> dict:
+    """K1 and K2 at one of ``WIDE_SHAPES`` (full Cholesky) and their bound
+    there; the streams (~40 GB with K2's scratch at the highdim shape) are
+    freed after."""
+    from viforsdes_tpu_torch.ops import sde_sampler as ss
+
+    spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, "full", 33, dt=dt, on_card=True)
+    fwd = ss.sampler_forward(spec, w, x0, gc, eps, save_h=True)
+    tmaj = [c.transpose(0, 1).contiguous() for c in (cot[0][:, 1:], cot[1], cot[2])]
+    del cot
+    bwd_args = (spec, w, x0, gc, eps, fwd, *tmaj)
+    grads = ss._backward_cuda(*bwd_args)
+    flop_f, flop_b = sampler_flop(spec, B, T)
+    bounds = {
+        "K1": bound(flop_f, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all), "fp32"),
+        "K2": bound(flop_b, nbytes(x0, gc, eps, w, fwd.paths, fwd.raw, fwd.h_all, *tmaj, grads), "fp32"),
+    }
+    del grads
+    times = {
+        f"fwd_ms_{label}": cuda_ms(torch, lambda: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True), 5),
+        f"bwd_ms_{label}": cuda_ms(torch, lambda: ss._backward_cuda(*bwd_args), 5),
+    }
+    times[f"fwd_us_per_step_{label}"] = us_per_step(times[f"fwd_ms_{label}"], T)
+    times[f"bwd_us_per_step_{label}"] = us_per_step(times[f"bwd_ms_{label}"], T)
+    times[f"rows_per_block_{label}"] = ss.rows_per_block(B, torch.cuda.get_device_properties(0).multi_processor_count)
+    del fwd, bwd_args, tmaj, gc, eps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"times": times, "bounds": bounds}
 
 
 def library_attention(torch, q, k, v, do, backend: str = "FLASH_ATTENTION") -> dict:
@@ -760,6 +826,7 @@ def make_trainer(vt, sampler: str, n_iterations: int):
         vt.HeadConfig(**HEAD, sampler=sampler),
         state_positive_dims=[],
         sde_param_positive_dims=[0, 2],
+        console=vt.Console(enabled=False),
         device="cuda",
     )
 
@@ -771,6 +838,7 @@ def phase_main_path(torch, vt) -> dict:
         encoder=vt.EncoderConfig(**ENC),
         head=vt.HeadConfig(**HEAD),
         sde_param_positive_dims=[0, 2],
+        console=vt.Console(enabled=False),
         device="cuda",
     )
     torch.cuda.synchronize()
@@ -948,6 +1016,7 @@ def lorenz_trainer(torch, vt, sampler: str, compute_dtype: str = "bfloat16"):
         vt.HeadConfig(**HEAD, sampler=sampler),
         state_positive_dims=[],
         sde_param_positive_dims=[0, 1, 2],
+        console=vt.Console(enabled=False),
         device="cuda",
     )
 
@@ -966,6 +1035,34 @@ def plain_attention():
         attention.use_flash_attention = saved
 
 
+@contextlib.contextmanager
+def timed_pretrain(torch):
+    """Wall time and result of each pretraining inside the block (the
+    trainer's ``pretrain_sde_parameters``, wrapped for the block): yields a
+    dict that holds ``seconds`` and ``theta`` (constrained) afterwards."""
+    from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer
+
+    record: dict = {}
+    saved = VariationalInferenceTrainer.pretrain_sde_parameters
+
+    def timed(self, config=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = saved(self, config)
+        torch.cuda.synchronize()
+        record["seconds"] = time.perf_counter() - t0
+        pos = torch.zeros_like(mean, dtype=torch.bool)
+        pos[self.sde_param_positive_dims] = True
+        record["theta"] = torch.where(pos, torch.exp(mean), mean).tolist()
+        return mean
+
+    VariationalInferenceTrainer.pretrain_sde_parameters = timed
+    try:
+        yield record
+    finally:
+        VariationalInferenceTrainer.pretrain_sde_parameters = saved
+
+
 def phase_lorenz_path(torch, vt) -> dict:
     sde, obs, lik, prior = lorenz_problem(torch, vt)
     depth = ENC["depth"]
@@ -974,20 +1071,28 @@ def phase_lorenz_path(torch, vt) -> dict:
         encoder=vt.EncoderConfig(**ENC),
         head=vt.HeadConfig(**HEAD),
         sde_param_positive_dims=[0, 1, 2],
+        pretrain=vt.PretrainConfig(),
+        console=vt.Console(enabled=False),
         device="cuda",
     )
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    posterior = vt.infer(sde, obs, lik, prior, LZ_HORIZON, config)
+    with timed_pretrain(torch) as pre:
+        posterior = vt.infer(sde, obs, lik, prior, LZ_HORIZON, config)
     summary = posterior.summary(n_samples=LZ_SAMPLES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    cfg = vt.PretrainConfig()
+    log(f"[lorenz] pretrain (PretrainConfig(): global, {cfg.sweep_candidates} sweep candidates at "
+        f"population {cfg.batch_size}, {cfg.cem_rounds} CEM rounds): {pre['seconds']:.2f} s wall; "
+        f"theta {pre['theta']} against the true {list(LZ_TRUE)}")
 
     n = LZ_STEPS
     # per training step: K5-K7 once per block, K3/K4 for q and for k of each
-    # block; summary() runs the encoder forward once more (one chunk)
+    # block; summary() runs the encoder forward once more (one chunk);
+    # pretraining launches none of them
     expected = {"K1": n + 1, "K2": n, "K3": 2 * depth * (n + 1), "K4": 2 * depth * n,
                 "K5": depth * (n + 1), "K6": depth * n, "K7": depth * n}
     history = posterior.evidence_lower_bound_history
@@ -1082,6 +1187,110 @@ def phase_lorenz_times(torch, vt):
     return arms["kernels"][0], steps["kernels"], stats
 
 
+# ---------------------------------------------------------- examples' path
+
+EX_STEPS, EX_EVERY = 20, 10  # examples/ornstein_uhlenbeck.py runs 20,000 steps
+
+
+def phase_examples(torch, vt) -> dict:
+    """examples/ornstein_uhlenbeck.py's calls at its configuration, cut to
+    20 steps with a checkpoint every 10: the console on, ``PretrainConfig()``
+    (auto: the global sweep and CEM), then the posterior's summary,
+    diagnostics, summary table, plot, save and load, and a resume from the
+    step-10 checkpoint against the unbroken run."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    has_rich = importlib.util.find_spec("rich") is not None
+    has_plot = importlib.util.find_spec("matplotlib") is not None
+    log(f"[examples] rich {'present' if has_rich else 'absent: the console runs disabled'}; "
+        f"matplotlib {'present' if has_plot else 'absent: plot() is not called'}")
+    sde, obs, lik, prior = ou_problem(vt)
+    names = ["kappa", "mu", "sigma"]
+    console = vt.Console(enabled=has_rich)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, ckpt10 = os.path.join(tmp, "run.npz"), os.path.join(tmp, "step10.npz")
+
+        def keep_step10(step: int, elbo: float) -> None:
+            # step 10's metrics are read only after the step-10 checkpoint is
+            # written and before the step-20 one
+            if step == EX_EVERY:
+                shutil.copyfile(ckpt, ckpt10)
+
+        def config(**kw):
+            return vt.InferenceConfig(
+                training=vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=EX_STEPS,
+                                           learning_rate=1e-4, sde_param_lr=1e-3, grad_clip_norm=1.0),
+                encoder=vt.EncoderConfig(hidden_dim=256, num_heads=4, depth=8),
+                head=vt.HeadConfig(hidden_dim=64, num_layers=2),
+                sde_param_positive_dims=[0, 2], param_names=names, pretrain=vt.PretrainConfig(),
+                checkpoint_every=EX_EVERY, device="cuda", **kw)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with timed_pretrain(torch) as pre:
+            posterior = vt.infer(sde, obs, lik, prior, HORIZON,
+                                 config(console=console, checkpoint_path=ckpt, callback=keep_step10))
+        summary = posterior.summary(n_samples=500)
+        diag = posterior.diagnostics()
+        console.summary_table(summary, diag, param_names=names)
+        if has_plot:
+            fig = posterior.plot(n_trajectories=30, show=False)
+            fig.savefig(os.path.join(tmp, "ou_posterior.png"), dpi=120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        # 20 steps; summary(500) samples two chunks, plot(30) one
+        expected = {"K1": EX_STEPS + 2 + int(has_plot), "K2": EX_STEPS,
+                    "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+        cfg = vt.PretrainConfig()
+        log(f"[examples] pretrain (PretrainConfig(): global, {cfg.sweep_candidates} candidates at "
+            f"population {cfg.batch_size}, {cfg.cem_rounds} CEM rounds): {pre['seconds']:.2f} s wall; "
+            f"theta {pre['theta']}")
+        log(f"[examples] infer (pretrain + {EX_STEPS} steps, checkpoints at {EX_EVERY} and {EX_STEPS}) "
+            f"+ summary(500) + summary table + plot(30): {wall:.2f} s wall")
+        log(f"[examples] launches {launches} (expected {expected})")
+        if launches != expected:
+            raise AssertionError(f"examples path did not run through exactly its kernels: {launches}")
+        history = posterior.evidence_lower_bound_history
+        if diag.n_iterations != EX_STEPS or not all(math.isfinite(v) for v in history):
+            raise AssertionError("examples path: missing or non-finite ELBO")
+        check_summary(torch, summary, (101, 1))
+        log(f"[examples] posterior theta mean {summary.sde_parameter_mean.tolist()}; "
+            f"final ELBO {diag.final_evidence_lower_bound:.3f}")
+
+        saved = os.path.join(tmp, "ou_posterior.npz")
+        posterior.save(saved)
+        loaded = vt.VariationalPosterior.load(saved, posterior.model, prior, obs)
+        from viforsdes_tpu_torch.utils.tree import tree_items
+
+        for (path, a), (_, b) in zip(tree_items(loaded.ema_params), tree_items(posterior.ema_params)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"examples: EMA leaf {path} differs after save and load")
+        if loaded.evidence_lower_bound_history != history:
+            raise AssertionError("examples: the ELBO history differs after save and load")
+        log("[examples] save -> load: every EMA leaf bitwise equal, history equal")
+
+        torch.cuda.synchronize()
+        reset_counts()
+        resumed = vt.infer(sde, obs, lik, prior, HORIZON,
+                           config(console=vt.Console(enabled=False), checkpoint_path=ckpt, resume_from=ckpt10))
+        torch.cuda.synchronize()
+        r_launches = read_counts()
+    r_hist = resumed.evidence_lower_bound_history
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r_hist, history))
+    bitwise = r_hist == history
+    log(f"[examples] resume from the step-{EX_EVERY} checkpoint to {EX_STEPS}: launches {r_launches}; "
+        f"history against the unbroken run: max rel {rel:.2e} (bar {ELBO_RTOL}), bitwise {bitwise}")
+    if len(r_hist) != EX_STEPS or rel > ELBO_RTOL:
+        raise AssertionError("examples: the resumed run differs from the unbroken one")
+    if r_launches["K1"] != EX_STEPS - EX_EVERY or r_launches["K2"] != EX_STEPS - EX_EVERY:
+        raise AssertionError(f"examples: the resume did not run its {EX_STEPS - EX_EVERY} steps: {r_launches}")
+    return {"pretrain_s": pre["seconds"], "wall_s": wall, "resume_bitwise": bitwise}
+
+
 def main() -> int:
     import torch
 
@@ -1110,6 +1319,8 @@ def main() -> int:
     phase_lorenz_parity(torch, vt)
     trainer, step, stats = phase_lorenz_times(torch, vt)
     phase_profile(torch, trainer, step, stats["kernels"]["median_ms"], "Lorenz-63", n=2)
+    del trainer
+    phase_examples(torch, vt)
     torch.cuda.synchronize()
 
     rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)

@@ -68,8 +68,8 @@ def test_compute_dtype():
 def test_inference_config_replaces_mesh_with_device():
     j = {f.name: f for f in dataclasses.fields(jinfer.InferenceConfig)}
     t = {f.name: f for f in dataclasses.fields(tinfer.InferenceConfig)}
-    # the console is not ported yet; the mesh becomes an explicit device
-    assert set(t) == (set(j) - {"mesh", "console"}) | {"device"}
+    # the mesh becomes an explicit device; every other field is the JAX one's
+    assert set(t) == (set(j) - {"mesh"}) | {"device"}
     for name in set(t) & set(j):
         assert t[name].default == j[name].default, name
     assert tinfer.InferenceConfig().device == "cuda"

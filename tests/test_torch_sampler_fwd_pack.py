@@ -1,11 +1,14 @@
 """The host side of K1's launch (``ops/sde_sampler.py``): the unit-major
-packed weights its matvecs read, and the rows per block it picks by batch.
-The kernel itself runs only on the card (``chip_smoke.py``)."""
+packed weights its matvecs read, the rows per block it picks by batch, and
+the widest head it takes, checked when the model is built. The kernel itself
+runs only on the card (``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
+from viforsdes_tpu_torch.config import HeadConfig
+from viforsdes_tpu_torch.models.head import DiffusionTransitionHead
 from viforsdes_tpu_torch.ops import sde_sampler as ss
 
 # H=12 is not a whole number of 8-unit warps: units 12..15 are padding
@@ -107,3 +110,28 @@ def test_forward_rows_keeps_one_wave(batch, want):
     assert blocks <= 132 or rows == ss.ROWS_PER_BLOCK[-1]
     smaller = [r for r in ss.ROWS_PER_BLOCK if r < rows]
     assert all(-(-batch // r) > 132 for r in smaller)
+
+
+@pytest.mark.parametrize(
+    "hidden,sampler,device,refused",
+    [
+        (256, "auto", "cuda", False),   # 32 warps of units: K1's widest, the last warp runs the output phase
+        (264, "auto", "cuda", True),
+        (264, "pallas", "cuda", True),
+        (264, "scan", "cuda", False),   # the plain loop takes any width
+        (264, "auto", "cpu", False),    # auto on the CPU is the plain loop
+    ],
+)
+def test_a_head_wider_than_k1_takes_is_refused_at_construction(hidden, sampler, device, refused):
+    """K1 runs one warp per 8 hidden units in at most 1024 threads, so it
+    takes H <= 256; a wider head that would reach it is refused when the
+    model is built, naming the limit and the plain sampler, not at the first
+    step (no card is touched: the device only says where the paths run)."""
+    assert ss.K1_MAX_HIDDEN == 1024 // 32 * 8
+    config = HeadConfig(hidden_dim=hidden, num_layers=2, sampler=sampler)
+    if refused:
+        with pytest.raises(ValueError, match=r'hidden_dim <= 256; pass sampler="scan"'):
+            DiffusionTransitionHead(3, 8, 3, config, device=torch.device(device))
+    else:
+        head = DiffusionTransitionHead(3, 8, 3, config, device=torch.device(device))
+        assert head.hidden_dim == hidden

@@ -148,6 +148,7 @@ def _config(**overrides):
         encoder=tvt.EncoderConfig(hidden_dim=32, cond_dim=16, num_heads=2, depth=2),
         head=tvt.HeadConfig(hidden_dim=16, num_layers=2),
         sde_param_positive_dims=[0, 2],
+        console=tvt.Console(enabled=False),
         device="cpu",
     )
     return tvt.InferenceConfig(**{**base, **overrides})
@@ -173,7 +174,8 @@ def test_divergence_aborts(monkeypatch):
     sde, obs, lik, prior, horizon = _problem()
     cfg = _config()
     tt = trainer_mod.VariationalInferenceTrainer(
-        sde, obs, lik, prior, horizon, cfg.training, cfg.encoder, cfg.head, [], [0, 2], device="cpu"
+        sde, obs, lik, prior, horizon, cfg.training, cfg.encoder, cfg.head, [], [0, 2],
+        console=tvt.Console(enabled=False), device="cpu"
     )
     tt.params["encoder"]["bridge_token"][0] = float("nan")
     with pytest.raises(RuntimeError, match="diverged"):
@@ -183,13 +185,16 @@ def test_divergence_aborts(monkeypatch):
 @pytest.mark.parametrize(
     "overrides",
     [
-        {"pretrain": True},
-        {"resume_from": "ckpt.npz"},
-        {"checkpoint_every": 5},
+        {"training": tvt.TrainingConfig(time_step=0.1, batch_size=8, n_iterations=2, steps_per_call=2)},
+        {"head": tvt.HeadConfig(hidden_dim=16, num_layers=2, cholesky="matched")},
+        {"head": tvt.HeadConfig(hidden_dim=16, num_layers=2, cholesky="matched", sampler="scan")},
         {"training": tvt.TrainingConfig(time_step=0.1, batch_size=8, n_iterations=2, steps_per_call=4)},
     ],
 )
 def test_unported_features_raise(overrides):
+    """What the port still lacks raises: several steps per dispatch and the
+    matched head mode (pretraining, checkpoints and resume are ported:
+    tests/test_torch_pretrain.py, tests/test_torch_resume.py)."""
     with pytest.raises(NotImplementedError):
         tvt.infer(*_problem(), _config(**overrides))
 

@@ -30,6 +30,7 @@ from viforsdes_tpu_torch.infer import InferenceConfig, infer
 from viforsdes_tpu_torch.inference.trainer import TrainingState, VariationalInferenceTrainer
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
 from viforsdes_tpu_torch.posterior.posterior import VariationalPosterior
+from viforsdes_tpu_torch.utils.console import Console
 
 __version__ = "0.1.0"
 
@@ -55,4 +56,5 @@ __all__ = [
     "HeadConfig",
     "PretrainConfig",
     "ComputeDtype",
+    "Console",
 ]

@@ -228,8 +228,9 @@ class HeadConfig(YamlConfig):
     # device, the plain loop on the CPU; "pallas" = the kernels (the name is
     # kept from the JAX package); "scan" = the plain loop everywhere.
     sampler: str = "auto"
-    # The TPU kernel's batch tile. The CUDA kernels fix their own rows per
-    # block (csrc/sde_sampler.cuh), so the port reads this field nowhere.
+    # The TPU kernel's batch tile. The CUDA kernels take their rows per
+    # block from the batch (``rows_per_block`` in ops/sde_sampler.py), so the
+    # port reads this field nowhere.
     sampler_block_b: int = 128
     # Transition-scale parameterization: "full" = lower-triangular Cholesky,
     # d(d+1)/2 outputs (reference parity); "diag" = per-dim diagonal scale,

@@ -18,7 +18,8 @@
 //  1. gates_kernel: the gate recompute does not depend on the reverse chain
 //     (it reads h_{t-1}, h_t, x_t and gates_const[t], all known from the
 //     forward), so it runs first over all T*B rows in parallel, 32 rows a
-//     block, kGateParts lanes per gate column, and writes r, z, n and n_hh of every
+//     block (16 or 8 where 32 rows' tiles exceed the shared memory, H > 227),
+//     kGateParts lanes per gate column, and writes r, z, n and n_hh of every
 //     step and layer to `acts` [L, T, B, 4H]. Its sums and nonlinearities are
 //     K1's (`gate_sums`, `gru_gates` in sde_sampler.cuh), so the gates are
 //     K1's to the bit.
@@ -83,9 +84,16 @@ struct BwdArgs {
 
 // ------------------------------------------------------------- gate pass
 
-constexpr int kGateRows = 32;   // (t, b) rows of a gate-pass block
 constexpr int kGateWarps = 24;  // at most
 
+// Shared memory of a gate-pass block of `rows` (t, b) rows.
+inline size_t gate_smem(int rows, int D, int H) {
+  return sizeof(float) * rows * ((size_t)(D > H ? D : H) + 7 * (size_t)H);
+}
+
+// kGateRows (t, b) rows a block: each row's sums run in their own chain, so
+// the result does not depend on it.
+template <int kGateRows>
 __global__ void __launch_bounds__(32 * kGateWarps) gates_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int H = a.H, G = 3 * a.H, L = a.L, D = a.D, LH = a.L * a.H;
@@ -512,13 +520,20 @@ extern "C" int sde_sampler_bwd(
   cudaError_t err = make_plan(D, H, L, n_tril, rows, &p);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_g = sizeof(float) * kGateRows * ((size_t)(D > H ? D : H) + 7 * (size_t)H);
-  err = allow_smem(gates_kernel, smem_g);
+  int optin = 0;
+  err = optin_smem(&optin);
+  if (err != cudaSuccess) return (int)err;
+  int gate_rows = 32;  // the most rows whose tiles fit the block's shared memory
+  while (gate_rows > 8 && gate_smem(gate_rows, D, H) > (size_t)optin) gate_rows /= 2;
+  const size_t smem_g = gate_smem(gate_rows, D, H);
+  if (smem_g > (size_t)optin) return (int)cudaErrorInvalidValue;
+  void (*gates)(BwdArgs) = gate_rows == 32 ? gates_kernel<32> : gate_rows == 16 ? gates_kernel<16> : gates_kernel<8>;
+  err = allow_smem(gates, smem_g);
   if (err != cudaSuccess) return (int)err;
   const int n_rows = T * B;
   const int gate_warps = (3 * H + kGateCols - 1) / kGateCols;
   const int gate_threads = 32 * (gate_warps < kGateWarps ? gate_warps : kGateWarps);
-  gates_kernel<<<(n_rows + kGateRows - 1) / kGateRows, gate_threads, smem_g, st>>>(a);
+  gates<<<(n_rows + gate_rows - 1) / gate_rows, gate_threads, smem_g, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

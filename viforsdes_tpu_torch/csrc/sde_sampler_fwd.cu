@@ -39,7 +39,10 @@
 //    (per-warp partials over their units, by shuffles); one more warp
 //    sums the partials, writes raw and runs the Euler update while the other
 //    warps compute the next step's layer-0 hidden product, which depends
-//    only on h_0(t).
+//    only on h_0(t). At H > 248 the 32 unit warps fill the block's 1024
+//    threads: the last unit warp then runs the output phase itself, after
+//    the top layer's barrier and before its own layer-0 hidden product
+//    (the same sums in the same order, so the same bits).
 //  - L + 1 barriers per step: one for the stage and x_t, one per layer.
 // All arithmetic is plain fp32 FMA (no tensor cores, no TF32), no atomics:
 // the result does not depend on R and is bitwise reproducible run to run.
@@ -66,14 +69,16 @@ struct FwdArgs {
 constexpr int kUnitsPerWarp = kGateCols;  // hidden units a warp owns, kGateParts lanes each
 // The kernel is built for two bounds on its threads: up to H=64 (8 warps of
 // units and the output warp) it may take 224 registers a thread; the wide
-// build, up to H=248, takes 64.
+// build, up to H=256 (32 warps of units), takes 64.
 constexpr int kNarrowThreads = 32 * (64 / kUnitsPerWarp + 1);
 constexpr int kWideThreads = 1024;
+constexpr int kMaxHidden = kWideThreads / 32 * kUnitsPerWarp;  // 256
 
 struct FwdPlan {
   int units;        // H rounded up to 8 (the packed row length, in float4)
   int ld_out;       // row stride of the packed W_out^T
-  int groups;       // warps that own hidden units; one more runs the output phase
+  int groups;       // warps that own hidden units
+  int out_warp;     // the warp of the output phase: one more, or the last unit warp at H > 248
   int threads;
   int staged;       // 1: the packed weights live in shared memory
   size_t smem;      // dynamic shared memory at this plan
@@ -94,11 +99,13 @@ __host__ __device__ inline size_t layer_offset4(int l, int D, int H, int units) 
 // opt-in shared memory, unless `staged` is 0.
 inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int rows, int staged, FwdPlan* p) {
   const size_t NO = (size_t)D + n_tril, LH = (size_t)L * H;
+  if (H > kMaxHidden) return cudaErrorInvalidValue;  // one warp per kUnitsPerWarp units
   p->groups = (H + kUnitsPerWarp - 1) / kUnitsPerWarp;
-  if (32 * (p->groups + 1) > kWideThreads) return cudaErrorInvalidValue;  // one warp per kUnitsPerWarp units
+  const int warps = 32 * (p->groups + 1) <= kWideThreads ? p->groups + 1 : p->groups;
+  p->out_warp = warps - 1;
   p->units = (H + 7) / 8 * 8;
   p->ld_out = packed_ld(p->units);  // the parts of a warp read one W_out^T row each
-  p->threads = 32 * (p->groups + 1);
+  p->threads = 32 * warps;
   const size_t out4 = (NO * p->ld_out + NO + 3) / 4;  // W_out^T and b_out, in float4
   p->w_floats = 4 * (layer_offset4(L, D, H, p->units) + out4);
   const size_t work = 2 * (size_t)rows * (3 * H + D) + 2 * rows * LH + rows * (size_t)D +
@@ -133,8 +140,9 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) 
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
   const int part = lane / kUnitsPerWarp;
   const int k = warp * kUnitsPerWarp + lane % kUnitsPerWarp;  // this lane's hidden unit
-  const bool out_warp = warp == p.groups;                     // the output phase's warp
-  const bool live = !out_warp && k < H;
+  const bool unit_warp = warp < p.groups;                     // owns hidden units
+  const bool out_warp = warp == p.out_warp;                   // runs the output phase
+  const bool live = unit_warp && k < H;
   const unsigned part_mask = ((1u << kUnitsPerWarp) - 1) << (kUnitsPerWarp * part);
   const int b0 = blockIdx.x * R;
 
@@ -195,7 +203,7 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) 
   __syncthreads();  // weights, h_{-1} = 0, x_0, tables
 
   float gh0[R][3];  // layer 0's hidden gate sums of the coming step
-  if (!out_warp) hidden_gates0(h_s, gh0);
+  if (unit_warp) hidden_gates0(h_s, gh0);
 
   for (int t = 0; t < a.T; ++t) {
     const float* h_old = h_s + (t & 1) * R * LH;
@@ -206,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) 
     if (t + 1 < a.T) prefetch(t + 1);  // stage (t + 1) & 1 was last read in step t - 1
 
     for (int l = 0; l < L; ++l) {
-      if (!out_warp) {
+      if (unit_warp) {
         float gi[R][3], gh[R][3];
         if (l == 0) {
           float sum[1][R][3];
@@ -295,7 +303,8 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) 
         x_s[i] = x_next;
         if (b < a.B) a.paths[((size_t)t * a.B + b) * D + d] = x_next;
       }
-    } else if (t + 1 < a.T) {
+    }
+    if (unit_warp && t + 1 < a.T) {
       hidden_gates0(h_new, gh0);  // h_0(t) is published: the next step's layer-0 hidden sums
     }
   }

@@ -3,11 +3,11 @@
 ``InferenceConfig`` composes the run; ``_InferenceInputs`` front-loads the
 validation (the grid-alignment rules are load-bearing for the encoder's
 observation slots and the ELBO's observation indices); ``infer`` builds the
-trainer, trains, and returns the ``VariationalPosterior``.
+trainer, resumes it from a checkpoint or pretrains the theta mean, trains
+(writing checkpoints if asked), and returns the ``VariationalPosterior``.
 
 The JAX package's ``mesh`` becomes ``device`` (default ``"cuda"``; a missing
-GPU raises, it never falls back to the CPU). Pretraining, checkpoints and
-resume are not ported yet and raise.
+GPU raises, it never falls back to the CPU).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from viforsdes_tpu_torch.core.sde import SDE
 from viforsdes_tpu_torch.core.state_space import StateSpace
 from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer
 from viforsdes_tpu_torch.posterior.posterior import VariationalPosterior
+from viforsdes_tpu_torch.utils.console import Console
 
 
 @dataclass(frozen=True)
@@ -48,12 +49,18 @@ class InferenceConfig:
     sde_param_init_mean: Tensor | None = None
     sde_param_init_std: float = 1.0
     pretrain: bool | PretrainConfig = False
+    console: Console | None = None
     seed: int = 0
     device: torch.device | str = "cuda"
     x0: Tensor | None = None
+    # per-step callback(step, elbo); a trainer checkpoint every
+    # checkpoint_every completed steps into checkpoint_path
     callback: Callable[[int, float], None] | None = None
     checkpoint_every: int | None = None
     checkpoint_path: str | Path | None = None
+    # continue an interrupted run from a trainer checkpoint (pretraining is
+    # skipped: the checkpointed params hold it); the rest of the config must
+    # be the original run's
     resume_from: str | Path | None = None
 
 
@@ -128,13 +135,6 @@ def infer(
         sde_param_positive_dims=list(cfg.sde_param_positive_dims),
         prior=prior,
     )
-    if cfg.resume_from is not None or cfg.checkpoint_every is not None:
-        raise NotImplementedError("checkpoints and resume are not ported yet")
-    if cfg.pretrain and cfg.sde_param_init_mean is None:
-        raise NotImplementedError(
-            "theta pretraining is not ported yet: pass pretrain=False or an "
-            "explicit sde_param_init_mean"
-        )
 
     trainer = VariationalInferenceTrainer(
         sde=sde,
@@ -147,13 +147,25 @@ def infer(
         head_config=cfg.head,
         state_positive_dims=inputs.state_positive_dims,
         sde_param_positive_dims=inputs.sde_param_positive_dims,
+        console=cfg.console,
+        param_names=cfg.param_names,
         sde_param_init_mean=cfg.sde_param_init_mean,
         sde_param_init_std=cfg.sde_param_init_std,
         seed=cfg.seed,
         device=cfg.device,
         x0=cfg.x0,
     )
-    state = trainer.train(callback=cfg.callback)
+    if cfg.resume_from is not None:
+        trainer.restore_checkpoint(cfg.resume_from)
+    elif cfg.pretrain and cfg.sde_param_init_mean is None:
+        pretrain_config = cfg.pretrain if isinstance(cfg.pretrain, PretrainConfig) else None
+        trainer.set_theta_mean(trainer.pretrain_sde_parameters(pretrain_config))
+
+    state = trainer.train(
+        callback=cfg.callback,
+        checkpoint_every=cfg.checkpoint_every,
+        checkpoint_path=cfg.checkpoint_path,
+    )
 
     return VariationalPosterior(
         model=trainer.model,
@@ -167,4 +179,5 @@ def infer(
         evidence_lower_bound_history=state.evidence_lower_bound_history,
         x0=cfg.x0,
         seed=cfg.seed,
+        sde=sde,
     )

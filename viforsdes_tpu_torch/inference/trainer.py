@@ -12,22 +12,29 @@ the guarded two-group AdamW on ``-ELBO``, update the EMA.
   group (``optimizer.ParamLayout``); the model reads the tree as views.
 - Host syncs: metrics stay on the device and are copied to the host
   asynchronously; the host reads them only at flush boundaries, leaving the
-  newest step in flight.
+  newest step in flight. Each flush feeds the console's live panel.
+- Checkpoints: params, AdamW state and EMA as trees under the params' leaf
+  paths (``utils/pytree_io.py``), with the next step; since a step's draws
+  depend only on ``(seed, step)``, a restored run replays the unbroken one.
+- Pretraining (``pretrain_sde_parameters``) fits the theta-posterior mean
+  before training, by a global population search or by gradient descent,
+  in plain PyTorch (the JAX package has no kernel there either). Its draws
+  come from ``pretrain_draws``, which a test can replace.
 
-Not ported yet (they raise): pretraining, checkpoint/resume, multi-device
-meshes, and ``steps_per_call`` > 1.
+Not ported yet: multi-device meshes and ``steps_per_call`` > 1 (it raises).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from viforsdes_tpu_torch.config import EncoderConfig, HeadConfig, TrainingConfig
+from viforsdes_tpu_torch.config import EncoderConfig, HeadConfig, PretrainConfig, TrainingConfig
 from viforsdes_tpu_torch.core.observations import (
     GaussianObservationLikelihood,
     ObservationLikelihood,
@@ -35,8 +42,10 @@ from viforsdes_tpu_torch.core.observations import (
 )
 from viforsdes_tpu_torch.core.priors import Prior
 from viforsdes_tpu_torch.core.sde import SDE
+from viforsdes_tpu_torch.core.solvers import euler_maruyama
 from viforsdes_tpu_torch.core.state_space import StateSpace
 from viforsdes_tpu_torch.inference.constants import (
+    LOSS_EMA_DECAY,
     MAX_CONSECUTIVE_NONFINITE_STEPS,
     OBS_VARIANCE_FLOOR,
 )
@@ -46,6 +55,18 @@ from viforsdes_tpu_torch.inference.optimizer import GROUPS, ParamLayout, global_
 from viforsdes_tpu_torch.inference.path_sampler import sample_diffusion_paths
 from viforsdes_tpu_torch.inference.types import EvidenceLowerBoundResult
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
+from viforsdes_tpu_torch.utils.console import Console
+from viforsdes_tpu_torch.utils.pytree_io import load_checkpoint, save_checkpoint
+
+
+# the ELBO components of a packed metrics row (entries 1..5), by name
+_COMPONENTS = (
+    "observation_log_prob",
+    "sde_log_prob",
+    "generative_log_prob",
+    "prior_log_prob",
+    "posterior_log_prob",
+)
 
 
 class StepMetrics(NamedTuple):
@@ -88,14 +109,26 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def stream_seed(seed: int, stream: int, step: int = 0) -> int:
+def stream_seed(seed: int, stream: int, step: int = 0, *sub: int) -> int:
     """Seed of one random stream (0 = init, 1 = training steps, 2 = posterior
-    sampling) at one step: a function of its arguments only."""
-    return int(np.random.SeedSequence([seed, stream, step]).generate_state(1, np.uint64)[0] >> 1)
+    sampling, 3 = pretraining) at one step (and ``sub``, a draw's kind within
+    it): a function of its arguments only."""
+    entropy = [seed, stream, step, *sub]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 # (theta eps [n_theta, P], path noise [T, B, D]) for one microbatch
 Draws = tuple[Tensor, Tensor]
+
+# The kinds of pretraining draws (``pretrain_draws``), the last entry of their
+# stream-3 seed.
+PRETRAIN_DRAWS = {"sweep": 0, "cem": 1, "init": 2, "theta": 3, "noise": 4}
+
+# The global pretrain scores its sweep candidates in scans of whole
+# population chunks, as many as keep a [N, D, D] diffusion tensor within this
+# many floats: fewer, wider scans than one per chunk, with the same elites
+# (the top of the union, as the JAX package's running merge keeps).
+SWEEP_SCAN_FLOATS = 1 << 26
 
 
 class VariationalInferenceTrainer:
@@ -112,6 +145,8 @@ class VariationalInferenceTrainer:
         state_positive_dims: list[int],
         sde_param_positive_dims: list[int],
         *,
+        console: Console | None = None,
+        param_names: list[str] | None = None,
         sde_param_init_mean: Tensor | None = None,
         sde_param_init_std: float = 1.0,
         seed: int = 0,
@@ -131,6 +166,8 @@ class VariationalInferenceTrainer:
         self.time_horizon = float(time_horizon)
         self.config = config
         self.seed = seed
+        self.param_names = param_names
+        self.console = console if console is not None else Console()
         self.state_space = StateSpace(sde.state_dim, state_positive_dims)
         self.sde_param_positive_dims = list(sde_param_positive_dims)
 
@@ -197,6 +234,7 @@ class VariationalInferenceTrainer:
             x0 = observations.values[0]
         self._x0_single = torch.as_tensor(x0, dtype=torch.float32).to(self.device)
         self._train_gen = torch.Generator(device=self.device)
+        self._pretrain_gen = torch.Generator(device=self.device)
 
         self.step = 0
         self._completed_steps = 0
@@ -213,6 +251,58 @@ class VariationalInferenceTrainer:
     @property
     def ema_params(self) -> dict:
         return self.layout.unpack(self.flat_ema)
+
+    # ---------------------------------------------------- checkpoint / resume
+
+    def _opt_state_tree(self) -> dict:
+        """The AdamW state with its moments as trees (the params' leaf paths)."""
+        s = self.opt_state
+        return {
+            "count": s["count"],
+            "mu": self.layout.unpack(s["mu"]),
+            "nu": self.layout.unpack(s["nu"]),
+            "notfinite_count": s["notfinite_count"],
+            "total_notfinite": s["total_notfinite"],
+        }
+
+    def save_checkpoint(self, path: str | Path) -> None:
+        """Mid-training checkpoint: params, AdamW state and EMA as trees, the
+        next step, the ELBO history and the best ELBO."""
+        save_checkpoint(
+            path,
+            trees={"params": self.params, "opt_state": self._opt_state_tree(), "ema": self.ema_params},
+            metadata={
+                "next_step": self._completed_steps,
+                "evidence_lower_bound_history": [float(v) for v in self.evidence_lower_bound_history],
+                "best_evidence_lower_bound": float(self.best_evidence_lower_bound),
+            },
+        )
+
+    def restore_checkpoint(self, path: str | Path) -> None:
+        """Resume from a checkpoint of ``save_checkpoint``: training continues
+        at its next step with the draws an unbroken run would take there. A
+        JAX trainer checkpoint holds optax's optimizer state, whose leaves are
+        not the port's: that mismatch raises a ValueError."""
+        trees, meta = load_checkpoint(
+            path,
+            templates={"params": self.params, "opt_state": self._opt_state_tree(), "ema": self.ema_params},
+            required_metadata=("next_step", "evidence_lower_bound_history", "best_evidence_lower_bound"),
+            kind="trainer",
+        )
+        opt = trees["opt_state"]
+        self.flat_params = self.layout.pack(trees["params"], self.device)
+        self.flat_ema = self.layout.pack(trees["ema"], self.device)
+        self.opt_state = {
+            "count": opt["count"].to(self.device, torch.int32),
+            "mu": self.layout.pack(opt["mu"], self.device),
+            "nu": self.layout.pack(opt["nu"], self.device),
+            "notfinite_count": opt["notfinite_count"].to(self.device, torch.int32),
+            "total_notfinite": opt["total_notfinite"].to(self.device, torch.int32),
+        }
+        self.evidence_lower_bound_history = list(meta["evidence_lower_bound_history"])
+        self.best_evidence_lower_bound = meta["best_evidence_lower_bound"]
+        self._completed_steps = int(meta["next_step"])
+        self.step = max(self._completed_steps - 1, 0)
 
     # ------------------------------------------------------------ train step
 
@@ -386,17 +476,24 @@ class VariationalInferenceTrainer:
         *,
         update_interval: int = 10,
         checkpoint_every: int | None = None,
-        checkpoint_path=None,
+        checkpoint_path: str | Path | None = None,
     ) -> TrainingState:
-        if checkpoint_every is not None or checkpoint_path is not None:
-            raise NotImplementedError("trainer checkpoints are not ported yet")
+        """Train from the next step to ``config.n_iterations``. With both
+        ``checkpoint_every`` and ``checkpoint_path``, a checkpoint is written
+        whenever the completed steps are a multiple of ``checkpoint_every``."""
+        self.console.config_panel(self.config)
+        # the smoothed loss, rebuilt from the history on resume
+        loss_ema = 0.0
+        for i, elbo in enumerate(self.evidence_lower_bound_history):
+            loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if i > 0 else -elbo
         # (first step, host copy of the packed metrics, event marking the copy)
         pending: list[tuple[int, Tensor, torch.cuda.Event | None]] = []
 
-        def flush(keep_last: int = 0) -> None:
+        def flush(progress, keep_last: int = 0) -> None:
             """Read pending metrics on the host. ``keep_last=1`` leaves the
             newest step's copy unread, so the device keeps working on it while
             the host catches up."""
+            nonlocal loss_ema
             if len(pending) <= keep_last:
                 return
             take = pending[: len(pending) - keep_last]
@@ -407,6 +504,7 @@ class VariationalInferenceTrainer:
             for step, host, _ in take:
                 row = host.tolist()
                 elbo = row[0]
+                loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if step > 0 else -elbo
                 self.evidence_lower_bound_history.append(elbo)
                 if elbo > self.best_evidence_lower_bound:
                     self.best_evidence_lower_bound = elbo
@@ -417,25 +515,46 @@ class VariationalInferenceTrainer:
                 raise RuntimeError(
                     f"training diverged: {worst} consecutive non-finite update "
                     f"steps by step {take[-1][0]} (params remain at their last "
-                    f"finite values)"
+                    f"finite values; inspect the latest checkpoint)"
                 )
+            last_step = take[-1][0]
+            progress.update(
+                step=last_step,
+                loss=loss_ema / (1 - LOSS_EMA_DECAY ** (last_step + 1)),
+                elbo=row[0],
+                best_elbo=self.best_evidence_lower_bound,
+                components=dict(zip(_COMPONENTS, row[1:6])),
+                grad_norm=row[6],
+                param_means=np.asarray(row[8:]),
+            )
 
-        for step in range(self._completed_steps, self.config.n_iterations):
-            metrics = self.train_step(step)
-            packed = torch.cat([torch.stack([v.float() for v in metrics[:7]]),
-                                metrics.notfinite_count.float()[None],
-                                metrics.param_means.float()])
-            if packed.is_cuda:
-                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                pending.append((step, host, event))
-            else:
-                pending.append((step, packed, None))
-            if (step + 1) % update_interval == 0:
-                flush(keep_last=1)
-        flush()
+        checkpointing = checkpoint_every is not None and checkpoint_path is not None
+        with self.console.training_progress(
+            self.config.n_iterations,
+            update_interval=update_interval,
+            param_names=self.param_names,
+            device=self.device,
+        ) as progress:
+            for step in range(self._completed_steps, self.config.n_iterations):
+                metrics = self.train_step(step)
+                packed = torch.cat([torch.stack([v.float() for v in metrics[:7]]),
+                                    metrics.notfinite_count.float()[None],
+                                    metrics.param_means.float()])
+                if packed.is_cuda:
+                    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                    host.copy_(packed, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    pending.append((step, host, event))
+                else:
+                    pending.append((step, packed, None))
+                completed = step + 1
+                if completed % update_interval == 0:
+                    flush(progress, keep_last=1)
+                if checkpointing and completed % checkpoint_every == 0:
+                    flush(progress)
+                    self.save_checkpoint(checkpoint_path)
+            flush(progress)
 
         return TrainingState(
             step=self.step,
@@ -444,6 +563,257 @@ class VariationalInferenceTrainer:
             params=self.params,
             ema_params=self.ema_params,
         )
+
+    # -------------------------------------------------------------- pretrain
+
+    def pretrain_draws(
+        self, kind: str, index: int, shape: tuple[int, ...],
+        low: Tensor | None = None, high: Tensor | None = None,
+    ) -> Tensor:
+        """The random numbers of pretraining, from stream 3 seeded by
+        ``(seed, index, kind)``: ``"sweep"`` the candidates of sweep chunk
+        ``index``, uniform in the box ``[low, high)``; ``"cem"`` the standard
+        normals of CEM round ``index``; ``"init"`` the normals of the gradient
+        method's initial mean; ``"theta"`` and ``"noise"`` gradient step
+        ``index``'s theta eps ``[B, P]`` and path noise ``[B, T, D]``."""
+        gen = self._pretrain_gen.manual_seed(stream_seed(self.seed, 3, index, PRETRAIN_DRAWS[kind]))
+        if kind == "sweep":
+            u = torch.rand(shape, generator=gen, device=self.device)
+            return torch.maximum(low, u * (high - low) + low)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def pretrain_sde_parameters(self, config: PretrainConfig | None = None) -> Tensor:
+        """Pre-fit of the theta-posterior mean: a global population search on
+        a teacher-forced segment objective (full-state observations), or
+        gradient descent on the full-rollout MSE (``PretrainConfig.method``;
+        ``"auto"`` takes the global search when the whole state is observed).
+        Returns the mean in the unconstrained parameterization (log for
+        positive dims)."""
+        cfg = config or PretrainConfig()
+        d = self.sde.sde_param_dim
+        pos_mask = torch.zeros(d, dtype=torch.bool, device=self.device)
+        pos_mask[self.sde_param_positive_dims] = True
+        obs_idx = np.round(np.asarray(self.observations.times) / self.config.time_step).astype(np.int64)
+        obs_values = self.obs_values
+        # partial observation: compare through the linear observation operator
+        obs_matrix = getattr(self.observation_likelihood, "obs_matrix", None)
+        full_state_obs = obs_matrix is None and obs_values.shape[-1] == self.sde.state_dim
+
+        method = cfg.method
+        if method == "auto":
+            method = "global" if full_state_obs else "gradient"
+        if method == "global" and not full_state_obs:
+            raise ValueError(
+                "pretrain method='global' requires full-state observations "
+                "(teacher forcing needs the whole state at every observation)"
+            )
+        if method == "global":
+            return self._pretrain_global(cfg, pos_mask, obs_idx, obs_values)
+        return self._pretrain_gradient(cfg, pos_mask, obs_idx, obs_values, obs_matrix)
+
+    def _segment_score(self, use_nll: bool, is_obs: np.ndarray, grid_obs: Tensor,
+                       pos_mask: Tensor) -> Callable[[Tensor], Tensor]:
+        """The global method's score ``z [N, P] -> [N]`` (lower is better):
+        one deterministic Euler rollout over the grid that restarts from the
+        observed state at every observation slot and scores each segment's
+        endpoint, by its Gaussian NLL under the candidate's own diffusion
+        ``(L L^T) t_seg`` with L frozen at the restart state (``use_nll``) or
+        by its squared error; the sum over segments per scored value,
+        non-finite as +inf. The observation slots are known on the host, so
+        the steps between them only roll the drift."""
+        dt = self.config.time_step
+        n_steps = len(is_obs) - 1
+        state_dim = self.sde.state_dim
+        n_scored = int(is_obs[1:].sum())
+        clamp = None
+        if self.state_space.positive_dims:
+            clamp = torch.zeros(state_dim, dtype=torch.bool, device=self.device)
+            clamp[list(self.state_space.positive_dims)] = True
+        dt32 = np.float32(dt)
+
+        def restart(x: Tensor, theta: Tensor) -> tuple[Tensor, Tensor]:
+            chol = self.sde.diffusion(x, theta)
+            diag = torch.abs(torch.diagonal(chol, dim1=-2, dim2=-1))
+            return chol, 2.0 * torch.sum(torch.log(diag + 1e-20), -1)
+
+        @torch.no_grad()
+        def score(z: Tensor) -> Tensor:
+            theta = torch.where(pos_mask, torch.exp(z), z)
+            x = self._x0_single.expand(z.shape[0], state_dim)
+            if use_nll:
+                chol, logdet = restart(x, theta)
+            total = torch.zeros(z.shape[0], dtype=torch.float32, device=self.device)
+            t_el = np.float32(0.0)
+            for k in range(n_steps):
+                x_next = x + self.sde.drift(x, theta) * dt
+                if clamp is not None:
+                    x_next = torch.where(clamp, torch.clamp(x_next, min=1e-6), x_next)
+                t_next = np.float32(t_el + dt32)
+                if not is_obs[k + 1]:
+                    x, t_el = x_next, t_next
+                    continue
+                y = grid_obs[k + 1].expand_as(x_next)
+                r = x_next - y
+                if use_nll:
+                    w = torch.linalg.solve_triangular(chol, r[..., None], upper=False)[..., 0]
+                    log_t = np.float32(state_dim) * np.log(t_next)
+                    total = total + 0.5 * (torch.sum(w * w, -1) / float(t_next) + logdet + float(log_t))
+                else:
+                    total = total + torch.sum(r * r, -1)
+                x, t_el = y, np.float32(0.0)
+                if use_nll:
+                    chol, logdet = restart(x, theta)
+            out = total / (n_scored * state_dim)
+            return torch.where(torch.isfinite(out), out, torch.full_like(out, float("inf")))
+
+        return score
+
+    def _pretrain_global(self, cfg: PretrainConfig, pos_mask: Tensor, obs_idx: np.ndarray,
+                         obs_values: Tensor) -> Tensor:
+        """Prior-box sweep + cross-entropy refinement of the segment score
+        (``_segment_score``; the JAX package's ``_pretrain_global`` explains
+        the choice). It assumes low observation noise: observed values are
+        taken as exact restart states."""
+        d = self.sde.sde_param_dim
+        n_steps = round(self.time_horizon / self.config.time_step)
+        state_dim = self.sde.state_dim
+        is_obs = np.zeros(n_steps + 1, dtype=bool)
+        is_obs[obs_idx] = True
+        grid_obs = torch.zeros((n_steps + 1, state_dim), dtype=torch.float32, device=self.device)
+        grid_obs[torch.as_tensor(obs_idx, device=self.device)] = obs_values.float()
+        if int(is_obs[1:].sum()) == 0:
+            raise ValueError("pretrain requires at least one observation after t=0")
+        score = self._segment_score(cfg.global_objective == "nll", is_obs, grid_obs, pos_mask)
+
+        # Prior-informed unconstrained search box (3 prior std; positive dims
+        # searched in log space, with 3 extra nats downward: small rate
+        # constants sit in the prior's lower tail).
+        m, s = self.prior.mean, self.prior.std
+        if self.prior.type.name == "LOG_NORMAL":
+            lo_pos, hi_pos = m - 3.0 * s - 3.0, m + 3.0 * s
+        else:
+            hi_pos = float(np.log(max(m + 3.0 * s, 1e-2)))
+            lo_pos = hi_pos - 7.0
+
+        def box(pos: float, other: float) -> Tensor:
+            return torch.where(pos_mask, torch.tensor(pos, dtype=torch.float32, device=self.device),
+                               torch.tensor(other, dtype=torch.float32, device=self.device))
+
+        lo, hi = box(lo_pos, m - 3.0 * s), box(hi_pos, m + 3.0 * s)
+        pop = cfg.batch_size
+        n_elite = max(1, int(round(cfg.elite_fraction * pop)))
+
+        with self.console.pretrain_progress(cfg.cem_rounds + 1) as progress:
+            # phase A: uniform sweep of the box, population chunks scored in
+            # wider scans; the running top-n_elite of every candidate so far
+            n_chunks = max(1, -(-cfg.sweep_candidates // pop))
+            per_scan = max(1, min(n_chunks, SWEEP_SCAN_FLOATS // (pop * state_dim * state_dim)))
+            best_z = torch.zeros((0, d), dtype=torch.float32, device=self.device)
+            best_s = torch.zeros((0,), dtype=torch.float32, device=self.device)
+            for c0 in range(0, n_chunks, per_scan):
+                z = torch.cat([self.pretrain_draws("sweep", c, (pop, d), lo, hi)
+                               for c in range(c0, min(n_chunks, c0 + per_scan))])
+                all_s = torch.cat([best_s, score(z)])
+                keep = torch.argsort(all_s, stable=True)[:n_elite]
+                best_z, best_s = torch.cat([best_z, z])[keep], all_s[keep]
+            mu = torch.mean(best_z, 0)
+            sigma = torch.std(best_z, 0, correction=0) + 0.05
+            progress.update(0, float(best_s[0]), float(best_s[0]), _median(sigma))
+
+            # phase B: cross-entropy refinement around the sweep elites
+            overall_best_s = float(best_s[0])
+            overall_best_z = best_z[0]
+            for r in range(cfg.cem_rounds):
+                z = mu + sigma * self.pretrain_draws("cem", r, (pop, d))
+                s_r = score(z)
+                elite = torch.argsort(s_r, stable=True)[:n_elite]
+                mu = torch.mean(z[elite], 0)
+                sigma = torch.std(z[elite], 0, correction=0) + 1e-4
+                round_best = float(s_r[elite[0]])
+                if round_best < overall_best_s:
+                    overall_best_s = round_best
+                    overall_best_z = z[elite[0]]
+                progress.update(r + 1, round_best, overall_best_s, _median(sigma))
+
+        # The CEM mean is the denoised estimate; the single best candidate if
+        # the mean regressed (NLL scores can be negative: an absolute and
+        # relative tolerance).
+        tol = 0.05 * max(1.0, abs(overall_best_s))
+        if float(score(mu[None])[0]) <= overall_best_s + tol:
+            return mu
+        return overall_best_z
+
+    def _pretrain_gradient(self, cfg: PretrainConfig, pos_mask: Tensor, obs_idx: np.ndarray,
+                           obs_values: Tensor, obs_matrix: Tensor | None) -> Tensor:
+        """Adam (after clip-by-global-norm 1.0, as optax's chain computes
+        them) on the full-rollout MSE at the observation times, through the
+        linear observation operator under partial observation. A step whose
+        MSE is not finite is skipped; the best mean is the one the best MSE
+        was evaluated at, before its step."""
+        d = self.sde.sde_param_dim
+        batch = cfg.batch_size
+        n_steps = round(self.time_horizon / self.config.time_step)
+        b1, b2, eps_adam, max_norm = 0.9, 0.999, 1e-8, 1.0
+        mu0 = torch.where(pos_mask, torch.zeros((), device=self.device),
+                          cfg.init_scale * self.pretrain_draws("init", 0, (d,)))
+        state = [mu0, torch.zeros(d, dtype=torch.float32, device=self.device)]  # mean, log sigma
+        m1 = [torch.zeros_like(v) for v in state]
+        m2 = [torch.zeros_like(v) for v in state]
+        count = 0
+        x0 = self._x0_single.expand(batch, self.sde.state_dim)
+        obs_idx_t = torch.as_tensor(obs_idx, device=self.device)
+        h = None if obs_matrix is None else obs_matrix.to(self.device)
+        best_mu, best_mse = mu0, float("inf")
+
+        with self.console.pretrain_progress(cfg.n_iterations) as progress:
+            for step in range(cfg.n_iterations):
+                eps = self.pretrain_draws("theta", step, (batch, d))
+                noise = self.pretrain_draws("noise", step, (batch, n_steps, self.sde.state_dim))
+                mu, log_sigma = (v.detach().requires_grad_() for v in state)
+                log_theta = mu + torch.exp(log_sigma) * eps
+                theta = torch.where(pos_mask, torch.exp(log_theta), log_theta)
+                paths = euler_maruyama(self.sde, x0, theta, self.time_horizon, self.config.time_step,
+                                       self.state_space.positive_dims, noise=noise)
+                predicted = paths[:, obs_idx_t]
+                if h is not None:
+                    predicted = torch.einsum("od,btd->bto", h, predicted)
+                mse = torch.mean((predicted - obs_values[None]) ** 2)
+                grads = torch.autograd.grad(mse, [mu, log_sigma])
+                mse_f = float(mse.detach())
+                mu_before = state[0]
+                if np.isfinite(mse_f):
+                    with torch.no_grad():
+                        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                        trigger = g_norm < max_norm
+                        count += 1
+                        bc1 = 1.0 - b1 ** np.float32(count)
+                        bc2 = 1.0 - b2 ** np.float32(count)
+                        new_state = []
+                        for i, g in enumerate(grads):
+                            g = torch.where(trigger, g, (g / g_norm) * max_norm)
+                            m1[i] = (1.0 - b1) * g + b1 * m1[i]
+                            m2[i] = (1.0 - b2) * (g * g) + b2 * m2[i]
+                            update = (m1[i] / float(bc1)) / (torch.sqrt(m2[i] / float(bc2)) + eps_adam)
+                            new_state.append(state[i] + -cfg.learning_rate * update)
+                        state = new_state
+                    if mse_f < best_mse:
+                        best_mu, best_mse = mu_before, mse_f
+                progress.update(step, mse_f, best_mse, _median(torch.exp(state[1])))
+        return best_mu.detach()
+
+    def set_theta_mean(self, mean: Tensor) -> None:
+        """Copy a pretrained mean into the theta posterior. The AdamW moments
+        restart from zero, as the JAX package does (pretraining comes before
+        any step); the EMA is left as it is, also as the JAX package does."""
+        with torch.no_grad():
+            self.params["theta"]["mean"].copy_(torch.as_tensor(mean, dtype=torch.float32))
+        self.opt_state = self.optimizer.init(self.flat_params)
+
+
+def _median(v: Tensor) -> float:
+    """The median as numpy takes it (the mean of the middle two), for the
+    pretrain panel."""
+    return float(np.median(v.detach().cpu().numpy()))
 
 
 def _detach(result: EvidenceLowerBoundResult) -> EvidenceLowerBoundResult:

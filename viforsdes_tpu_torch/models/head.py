@@ -19,6 +19,7 @@ from viforsdes_tpu_torch.config import HeadConfig
 from viforsdes_tpu_torch.inference.constants import DIAG_MIN
 from viforsdes_tpu_torch.ops.initializers import fan_in_uniform_init
 from viforsdes_tpu_torch.ops.sde_sampler import (
+    K1_MAX_HIDDEN,
     SamplerSpec,
     index_tables,
     prep_weights,
@@ -36,7 +37,11 @@ class DiffusionTransitionHead:
         context_dim: int,
         sde_param_dim: int,
         config: HeadConfig,
+        device: torch.device | None = None,
     ) -> None:
+        """``device`` is where the paths will be sampled: on a CUDA device
+        the kernels run (unless ``sampler="scan"``), and a head wider than
+        they take is refused here rather than at the first step."""
         if config.num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {config.num_layers}")
         if config.cholesky == "matched":
@@ -54,6 +59,12 @@ class DiffusionTransitionHead:
         self.n_tril = state_dim if self.cholesky == "diag" else state_dim * (state_dim + 1) // 2
         self.input_dim = state_dim + context_dim + sde_param_dim
         self.sampler = config.sampler
+        on_kernels = device is not None and torch.device(device).type == "cuda" and self.sampler != "scan"
+        if on_kernels and self.hidden_dim > K1_MAX_HIDDEN:
+            raise ValueError(
+                f"HeadConfig(hidden_dim={self.hidden_dim}): the path-sampler kernels take "
+                f"hidden_dim <= {K1_MAX_HIDDEN}; pass sampler=\"scan\" for the plain loop"
+            )
 
     def init(self, gen: torch.Generator) -> dict:
         """GRU weights U(+-1/sqrt(H)) (torch GRU default); out_proj zero-init

@@ -46,6 +46,7 @@ class VariationalSDEPosterior:
             context_dim=encoder_config.hidden_dim,
             sde_param_dim=sde_param_dim,
             config=head_config,
+            device=device,
         )
         self.theta_posterior = ThetaPosterior(
             sde_param_dim,

@@ -353,16 +353,21 @@ class ForwardPlan(NamedTuple):
         return self.smem_staged if self.staged else self.smem_streaming
 
 
+# The widest head K1 takes: 32 warps of 8 hidden units fill a block's 1024
+# threads (``kMaxHidden`` in csrc/sde_sampler_fwd.cu).
+K1_MAX_HIDDEN = 256
+
+
 @functools.lru_cache(maxsize=None)
 def forward_plan(spec: SamplerSpec, rows: int, device_index: int) -> ForwardPlan:
     """K1's launch for ``spec`` at ``rows`` batch rows per block, chosen by
     shape alone: staged when the packed weights fit the card's opt-in shared
-    memory. K1 takes at most 31 warps of 8 hidden units (H <= 248)."""
+    memory. K1 takes at most 32 warps of 8 hidden units (H <= 256)."""
     out = (ctypes.c_longlong * 7)()
     with torch.cuda.device(device_index):
         err = SDE_SAMPLER.get().sde_sampler_fwd_plan(
             spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, rows, ctypes.addressof(out))
-    raise_on(err, f"sde_sampler_fwd_plan (H={spec.hidden_dim}; K1 takes H <= 248)")
+    raise_on(err, f"sde_sampler_fwd_plan (H={spec.hidden_dim}; K1 takes H <= {K1_MAX_HIDDEN})")
     staged, threads, smem_staged, smem_streaming, floats, ld_out, units = out
     return ForwardPlan(bool(staged), threads, smem_staged, smem_streaming, floats, ld_out, units)
 
@@ -703,6 +708,7 @@ __all__ = [
     "FusedPathSampler",
     "FORWARD_LAUNCHES",
     "BACKWARD_LAUNCHES",
+    "K1_MAX_HIDDEN",
     "BackwardPlan",
     "ForwardPlan",
     "ROWS_PER_BLOCK",

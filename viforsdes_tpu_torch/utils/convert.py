@@ -2,23 +2,23 @@
 
 ``load_jax_npz`` reads the ``.npz`` format of ``viforsdes_tpu/utils/pytree_io.py``
 (every leaf stored under its tree path joined by "/", plus a JSON metadata
-blob) with numpy alone; ``params_from_numpy`` turns a params tree of numpy
-arrays into the port's tree of tensors, leaf for leaf (the port keeps the JAX
-layout: weights ``[in, out]``, GRU gates r,z,n, the same leaf paths).
+blob) through the port's own reader, ``utils/pytree_io.py``, which also writes
+that format; ``params_from_numpy`` turns a params tree of numpy arrays into
+the port's tree of tensors, leaf for leaf (the port keeps the JAX layout:
+weights ``[in, out]``, GRU gates r,z,n, the same leaf paths).
 """
 
 from __future__ import annotations
 
-import json
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
+from viforsdes_tpu_torch.utils.pytree_io import read_archive
 from viforsdes_tpu_torch.utils.tree import tree_map
 
-_META_KEY = "__viforsdes_meta__"
 _SEP = "/"
 
 
@@ -53,9 +53,5 @@ def _nest(flat: dict[str, np.ndarray]) -> Any:
 def load_jax_npz(path: str | Path) -> tuple[dict[str, Any], dict]:
     """``(trees, metadata)``: the archive's top-level names (``"params"``,
     ``"model_state"``, ...) mapped to their numpy trees, and the metadata."""
-    with np.load(Path(path)) as archive:
-        flat = {k: archive[k] for k in archive.files}
-    if _META_KEY not in flat:
-        raise ValueError("not a viforsdes checkpoint: missing metadata blob")
-    metadata = json.loads(bytes(flat.pop(_META_KEY)).decode("utf-8"))
+    flat, metadata = read_archive(path)
     return _nest(flat), metadata
