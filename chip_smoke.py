@@ -62,7 +62,19 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    to a file, ``save`` -> ``load`` (EMA leaves bitwise equal), and
    ``infer(resume_from=)`` the step-10 checkpoint to 20 steps against the
    unbroken ELBO history; the console and the plot need ``rich`` and
-   ``matplotlib``, and the phase says so on one line where one is absent.
+   ``matplotlib``, and the phase says so on one line where one is absent;
+11. ``[graph]``: several training steps per dispatch as one CUDA graph
+   (``steps_per_call``) against one step per dispatch, from the same seed, at
+   the OU bench configuration (10 steps a graph, 40 steps) and at the Lorenz
+   configuration (5 steps a graph, 15 steps): ELBO histories, params, EMA and
+   AdamW moments against the per-step arm (bit equality reported), both
+   arms' ms/step in turns and peak memory, and a profile of one replay with
+   K1-K7 counted by kernel name (the launch counters count Python calls, so
+   under a replay they see only the capture);
+12. ``[matched]``: ``infer()`` with ``HeadConfig(cholesky="matched")`` at the
+   OU bench configuration, 5 steps and ``summary(64)``: finite ELBOs, no
+   path-sampler kernel launched (the mode runs the head's loop, as in the JAX
+   package), and ``sampler="pallas"`` refused.
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -817,11 +829,11 @@ def ou_problem(vt):
     )
 
 
-def make_trainer(vt, sampler: str, n_iterations: int):
+def make_trainer(vt, sampler: str, n_iterations: int, **training):
     sde, obs, lik, prior = ou_problem(vt)
     return vt.VariationalInferenceTrainer(
         sde, obs, lik, prior, HORIZON,
-        vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=n_iterations),
+        vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=n_iterations, **training),
         vt.EncoderConfig(**ENC),
         vt.HeadConfig(**HEAD, sampler=sampler),
         state_positive_dims=[],
@@ -1006,12 +1018,12 @@ def lorenz_problem(torch, vt):
     )
 
 
-def lorenz_trainer(torch, vt, sampler: str, compute_dtype: str = "bfloat16"):
+def lorenz_trainer(torch, vt, sampler: str, compute_dtype: str = "bfloat16", **training):
     sde, obs, lik, prior = lorenz_problem(torch, vt)
     return vt.VariationalInferenceTrainer(
         sde, obs, lik, prior, LZ_HORIZON,
-        vt.TrainingConfig(time_step=LZ_DT, batch_size=LZ_BATCH, n_iterations=10_000,
-                          compute_dtype=compute_dtype),
+        vt.TrainingConfig(**{"time_step": LZ_DT, "batch_size": LZ_BATCH, "n_iterations": 10_000,
+                             "compute_dtype": compute_dtype, **training}),
         vt.EncoderConfig(**ENC),
         vt.HeadConfig(**HEAD, sampler=sampler),
         state_positive_dims=[],
@@ -1291,6 +1303,212 @@ def phase_examples(torch, vt) -> dict:
     return {"pretrain_s": pre["seconds"], "wall_s": wall, "resume_bitwise": bitwise}
 
 
+# ------------------------------------------------- several steps per graph
+
+# (steps per call K, training steps per arm, flush interval): one eager warm
+# chunk, then replays of the captured graph
+GRAPH_OU = (10, 40, 10)
+GRAPH_LZ = (5, 15, 5)
+GRAPH_WINDOWS = 2  # K-step windows per arm and turn of the timing
+
+# each kernel's main device function, by the name the profiler gives it
+KERNEL_NAMES = {
+    "K1": r"sde_sampler::fwd_kernel",
+    "K2": r"sde_sampler::bptt_kernel",
+    "K3": r"qk_prep::qk_prep_kernel<.*, false>",
+    "K4": r"qk_prep::qk_prep_kernel<.*, true>",
+    "K5": r"flash::fwd_(mma_)?kernel",
+    "K6": r"flash::dkv_(mma_)?kernel",
+    "K7": r"flash::dq_(mma_)?kernel",
+}
+
+
+def trainer_state(trainer) -> dict:
+    from viforsdes_tpu_torch.inference.optimizer import GROUPS
+
+    s = trainer.opt_state
+    out = {f"params/{g}": trainer.flat_params[g] for g in GROUPS}
+    out.update({f"ema/{g}": trainer.flat_ema[g] for g in GROUPS})
+    out.update({f"adam mu/{g}": s["mu"][g] for g in GROUPS})
+    out.update({f"adam nu/{g}": s["nu"][g] for g in GROUPS})
+    return out
+
+
+def graph_pool_gib(torch, graph) -> float | str:
+    """GiB reserved by ``graph``'s private memory pool (the allocator's
+    segments of that pool), which no allocation statistic shows during a
+    replay; "not measured" where the snapshot does not name its pools."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == pool) / 2**30
+
+
+def phase_graph(torch, label: str, make, k: int, n_steps: int, interval: int,
+                expected_counts: dict) -> dict:
+    """``steps_per_call=k`` (one CUDA graph of k steps, after one eager warm
+    chunk) against ``steps_per_call=1`` from the same seed, ``n_steps`` steps
+    each through ``train()``: ELBO histories, params, EMA and AdamW moments
+    against the per-step arm (bitwise reported; held to ``ELBO_RTOL`` and the
+    backward bars), each arm's peak memory; then ms/step of both arms in
+    turns (per-step, graph, graph, per-step), ``GRAPH_WINDOWS`` windows of k
+    steps each, every window ended by a synchronize; then a profile of one
+    replay: device time, idle share, and K1-K7 counted by kernel name."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    arms = {"per-step": make(1), "graph": make(k)}
+    histories, peaks = {}, {}
+    for name, trainer in arms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        histories[name] = trainer.train(update_interval=interval).evidence_lower_bound_history
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        how = f"one eager chunk, the capture, {n_steps // k - 1} replays" if name == "graph" else "one step a call"
+        log(f"[graph] {label} {name}: {n_steps} steps through train() ({how}) in "
+            f"{time.perf_counter() - t0:.2f} s; peak {peaks[name]:.3f} GiB allocated")
+    chunk = arms["graph"]._train_chunks.get(k)
+    if chunk is None or chunk.graph is None:
+        raise AssertionError(f"[graph] {label}: the {k}-step chunk was not captured")
+    if arms["per-step"]._train_chunks:
+        raise AssertionError(f"[graph] {label}: the per-step arm built a chunk")
+    a, b = histories["per-step"], histories["graph"]
+    if len(a) != n_steps or len(b) != n_steps or not all(math.isfinite(v) for v in a + b):
+        raise AssertionError(f"[graph] {label}: missing or non-finite ELBO")
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    bitwise = {"history": a == b}
+    worst = {}
+    sa, sb = trainer_state(arms["per-step"]), trainer_state(arms["graph"])
+    for key in sa:
+        bitwise[key] = bool(torch.equal(sa[key], sb[key]))
+        worst[key] = max_err(sb[key], sa[key], BWD_RTOL, BWD_ATOL, f"[graph] {label} {key}")
+    log(f"[graph] {label}: ELBO history max rel {rel:.3e} (bar {ELBO_RTOL}); bitwise equal: {json.dumps(bitwise)}; "
+        f"max |err| {json.dumps(worst)}")
+    if rel > ELBO_RTOL:
+        raise AssertionError(f"[graph] {label}: the graph arm's ELBO history differs from the per-step arm's")
+
+    # timing in turns, from the next step of each arm
+    step = {name: trainer._completed_steps for name, trainer in arms.items()}
+    samples = {name: [] for name in arms}
+
+    def window(name: str) -> float:
+        trainer = arms[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "graph":
+            chunk(step[name])
+        else:
+            for i in range(k):
+                trainer.train_step(step[name] + i)
+        torch.cuda.synchronize()
+        step[name] += k
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    for name in ("per-step", "graph", "graph", "per-step"):
+        samples[name] += [window(name) for _ in range(GRAPH_WINDOWS)]
+    stats = {}
+    for name, v in samples.items():
+        q = statistics.quantiles(v, n=4)
+        stats[name] = {"median_ms": statistics.median(v), "q1_ms": q[0], "q3_ms": q[2], "n_windows": len(v),
+                       "steps_per_window": k, "peak_gib": peaks[name]}
+    pool = graph_pool_gib(torch, chunk.graph)
+    log(f"[graph] {label} ms/step (windows of {k} steps, synchronized at each window's end; peak_gib: "
+        f"allocated during the train() run, the capture included): " + json.dumps(stats)
+        + f"; the graph's private pool holds {pool} GiB")
+
+    # one replay under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk(step["graph"])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not events:
+        raise AssertionError(f"[graph] {label}: the profile of one replay holds no device kernel")
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    device_ms = sum(getattr(e, attr) for e in events) / 1e3 / k
+    counts = {kern: sum(e.count for e in events if re.search(pattern, e.key))
+              for kern, pattern in KERNEL_NAMES.items()}
+    graph_ms = stats["graph"]["median_ms"]
+    idle = max(0.0, 1 - device_ms / graph_ms)
+    log(f"[graph] {label} profile of one replay ({k} steps, with the draws and input copies before it): "
+        f"device kernel time {device_ms:.3f} ms/step in {sum(e.count for e in events)} launches; against "
+        f"the unprofiled {graph_ms:.3f} ms/step: device idle share {idle:.3f}; kernels by name {json.dumps(counts)} "
+        f"(expected {json.dumps(expected_counts)})")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+        log(f"[graph]   {getattr(e, attr) / k / 1e3:8.3f} ms/step  x{e.count:<4d} {e.key[:90]}")
+    if counts != expected_counts:
+        raise AssertionError(f"[graph] {label}: kernel counts of one replay {counts}, expected {expected_counts}")
+    return {"elbo_rel": rel, "bitwise": bitwise, "stats": stats, "pool_gib": pool, "device_ms": device_ms,
+            "idle": idle, "counts": counts}
+
+
+def phase_graph_ou(torch, vt) -> dict:
+    k, n, interval = GRAPH_OU
+    zero = {"K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+    return phase_graph(torch, "OU bench config", lambda spc: make_trainer(vt, "auto", n, steps_per_call=spc),
+                       k, n, interval, {"K1": k, "K2": k, **zero})
+
+
+def phase_graph_lorenz(torch, vt) -> dict:
+    k, n, interval = GRAPH_LZ
+    depth = ENC["depth"]
+    expected = {"K1": k, "K2": k, "K3": 2 * depth * k, "K4": 2 * depth * k,
+                "K5": depth * k, "K6": depth * k, "K7": depth * k}
+    return phase_graph(torch, "Lorenz-63", lambda spc: lorenz_trainer(torch, vt, "auto", n_iterations=n,
+                                                                      steps_per_call=spc),
+                       k, n, interval, expected)
+
+
+# ------------------------------------------------------ diffusion-matched head
+
+MATCHED_STEPS = 5
+
+
+def phase_matched(torch, vt) -> dict:
+    """``infer()`` with ``HeadConfig(cholesky="matched")`` at the OU bench
+    configuration: the user's diffusion runs inside the head's loop, so no
+    path-sampler kernel launches; ``sampler="pallas"`` is refused."""
+    sde, obs, lik, prior = ou_problem(vt)
+
+    def config(**head):
+        return vt.InferenceConfig(
+            training=vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=MATCHED_STEPS),
+            encoder=vt.EncoderConfig(**ENC),
+            head=vt.HeadConfig(**HEAD, cholesky="matched", **head),
+            sde_param_positive_dims=[0, 2],
+            console=vt.Console(enabled=False),
+            device="cuda",
+        )
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    posterior = vt.infer(sde, obs, lik, prior, HORIZON, config())
+    summary = posterior.summary(n_samples=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    history = posterior.evidence_lower_bound_history
+    log(f"[matched] infer ({MATCHED_STEPS} steps) + summary(64): {wall:.2f} s wall; ELBO history "
+        f"{[round(v, 3) for v in history]}; launches {launches} (expected none)")
+    if len(history) != MATCHED_STEPS or not all(math.isfinite(v) for v in history):
+        raise AssertionError("[matched] missing or non-finite ELBO")
+    if any(launches.values()):
+        raise AssertionError(f"[matched] the matched head launched kernels: {launches}")
+    check_summary(torch, summary, (101, 1))
+    try:
+        vt.infer(sde, obs, lik, prior, HORIZON, config(sampler="pallas"))
+    except ValueError as err:
+        log(f"[matched] sampler='pallas' refused: {err}")
+    else:
+        raise AssertionError("[matched] sampler='pallas' was not refused")
+    return {"wall_s": wall, "history": history}
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1539,9 @@ def main() -> int:
     phase_profile(torch, trainer, step, stats["kernels"]["median_ms"], "Lorenz-63", n=2)
     del trainer
     phase_examples(torch, vt)
+    phase_graph_ou(torch, vt)
+    phase_graph_lorenz(torch, vt)
+    phase_matched(torch, vt)
     torch.cuda.synchronize()
 
     rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)

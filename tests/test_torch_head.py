@@ -201,7 +201,3 @@ def test_dispatch_on_the_cpu():
         ss.sampler_forward(spec, w, x0.to("meta"), torch.empty(3, 2, 3 * HID, device="meta"),
                            eps.to("meta"), save_h=False)
 
-
-def test_matched_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="matched"):
-        DiffusionTransitionHead(1, CTX, PAR, HeadConfig(hidden_dim=HID, cholesky="matched"))

@@ -19,6 +19,7 @@ import torch
 import viforsdes_tpu_torch as tvt
 from viforsdes_tpu_torch.inference import trainer as trainer_mod
 from viforsdes_tpu_torch.inference.optimizer import GROUPS
+from viforsdes_tpu_torch.models.head import DiffusionTransitionHead
 from viforsdes_tpu_torch.utils.tree import tree_items
 
 from test_torch_elbo import BATCH, OBS_TIMES, OBS_VALUES, OU, flat_paths, jax_draws, make_pair
@@ -182,21 +183,14 @@ def test_divergence_aborts(monkeypatch):
         tt.train(update_interval=2)
 
 
-@pytest.mark.parametrize(
-    "overrides",
-    [
-        {"training": tvt.TrainingConfig(time_step=0.1, batch_size=8, n_iterations=2, steps_per_call=2)},
-        {"head": tvt.HeadConfig(hidden_dim=16, num_layers=2, cholesky="matched")},
-        {"head": tvt.HeadConfig(hidden_dim=16, num_layers=2, cholesky="matched", sampler="scan")},
-        {"training": tvt.TrainingConfig(time_step=0.1, batch_size=8, n_iterations=2, steps_per_call=4)},
-    ],
-)
-def test_unported_features_raise(overrides):
-    """What the port still lacks raises: several steps per dispatch and the
-    matched head mode (pretraining, checkpoints and resume are ported:
-    tests/test_torch_pretrain.py, tests/test_torch_resume.py)."""
-    with pytest.raises(NotImplementedError):
-        tvt.infer(*_problem(), _config(**overrides))
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_matched_head_refuses_the_pallas_sampler(device):
+    """The diffusion-matched head runs the user's diffusion inside the
+    recurrence, which no kernel does: ``sampler="pallas"`` is refused when the
+    head is built, for any device, as in the JAX package."""
+    head = tvt.HeadConfig(hidden_dim=16, num_layers=2, cholesky="matched", sampler="pallas")
+    with pytest.raises(ValueError, match="requires the scan sampler"):
+        DiffusionTransitionHead(1, 16, 3, head, device=torch.device(device))
 
 
 def test_missing_gpu_raises_instead_of_falling_back():

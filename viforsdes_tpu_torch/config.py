@@ -66,9 +66,11 @@ class TrainingConfig(YamlConfig):
     # ELBO (the mechanism behind the Lorenz-63 / high-dim OU 2-sigma failures,
     # BASELINE.md round-2 diagnosis).
     iw_samples: int = 1
-    # Steps per dispatch. The port runs one step per call for 0 and 1; larger
-    # values (several steps captured as one CUDA graph) raise
-    # NotImplementedError in the trainer until that dispatch exists.
+    # Optimizer steps per dispatch: K > 1 runs K steps per call, captured as
+    # one CUDA graph on a GPU (inference/chunk.py); 1 dispatches every step
+    # on its own; 0 (auto) takes the console's flush interval for runs of at
+    # least three intervals and 1 otherwise. Chunks never span a flush or a
+    # checkpoint, so the interval caps K.
     steps_per_call: int = 0
     # Full-covariance q(theta) in the unconstrained space (zero-init coupling,
     # so init == the reference's mean-field family). Mean-field cannot
@@ -245,8 +247,9 @@ class HeadConfig(YamlConfig):
     # match — so matched mode removes the free-Cholesky failure mode where
     # the bridge's quadratic variation collapses to the DIAG_MIN floor and
     # drags the sigma posterior with it (the measured ladder-5 mechanism,
-    # BASELINE.md / benchmarks/bridge_diagnosis.py). Requires the scan
-    # sampler (the user's diffusion fn runs inside the recurrence).
+    # BASELINE.md / benchmarks/bridge_diagnosis.py). Runs the head's plain
+    # loop on every device, since the user's diffusion fn runs inside the
+    # recurrence; sampler="pallas" is refused for it.
     cholesky: str = "full"
 
     @field_validator("hidden_dim", "num_layers", "sampler_block_b")

@@ -4,7 +4,7 @@ PyTorch twin of ``viforsdes_tpu/core/observations.py``, with the same
 validation. Times stay host float64 numpy: they are static grid metadata
 (slot indices, validation), and fp32 times past 16.2 break the 1e-6
 grid-alignment tolerance. Values are fp32 ``torch`` tensors on the CPU; the
-trainer moves them to its device.
+trainer moves them, and a likelihood's ``obs_matrix``, to its device once.
 """
 
 from __future__ import annotations
@@ -110,8 +110,7 @@ class GaussianObservationLikelihood(BaseModel):
                 raise ValueError("obs_matrix first dim must match observations")
             if self.obs_matrix.shape[1] != state.shape[-1]:
                 raise ValueError("obs_matrix second dim must match state")
-            h = self.obs_matrix.to(state.device)
-            predicted = torch.einsum("od,...d->...o", h, state)
+            predicted = torch.einsum("od,...d->...o", self.obs_matrix, state)
         else:
             predicted = state
 

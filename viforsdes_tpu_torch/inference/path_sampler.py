@@ -3,7 +3,9 @@
 
 Runs the encoder over the grid, maps ``x0 -> z0``, rolls the head over
 ``context[:, :-1]`` with the caller's standard-normal noise (time-major
-``[T, B, D]``), and wraps the result.
+``[T, B, D]``), and wraps the result. ``sde`` is read only by the
+diffusion-matched head (``cholesky="matched"``), whose recurrence evaluates
+the SDE's diffusion.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ def sample_diffusion_paths(
     noise: Tensor,
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
+    sde=None,
 ) -> DiffusionPathSample:
     context = encoder(
         params["encoder"], obs_values, sde_parameters, compute_dtype=compute_dtype
@@ -40,6 +43,8 @@ def sample_diffusion_paths(
         sde_parameters,
         noise,
         time_step,
+        sde=sde,
+        state_space=state_space,
     )
     return DiffusionPathSample(
         z=paths,

@@ -9,10 +9,22 @@ the guarded two-group AdamW on ``-ELBO``, update the EMA.
   role of ``fold_in(base, step)``). ``_step_math`` takes the draws as
   arguments, so a test can inject the JAX package's.
 - State: params, EMA and AdamW moments are flat fp32 buffers per parameter
-  group (``optimizer.ParamLayout``); the model reads the tree as views.
+  group (``optimizer.ParamLayout``); the model reads the tree as views. The
+  buffers are updated in place, never replaced (a captured graph holds their
+  addresses).
+- Per-step host inputs: the theta-warmup scale and the annealed claimed
+  observation variance are computed on the host (fp32, as the JAX package
+  computes them) and enter the step as 0-dim device tensors, copied from
+  pinned memory; nothing in the step reads a device value on the host.
+- Dispatch: ``steps_per_call`` K > 1 runs K steps per call through a
+  ``TrainChunk`` (``inference/chunk.py``): one CUDA graph of K steps on a
+  CUDA device, the same K steps eagerly on the CPU. Chunks never span a
+  flush or checkpoint boundary; auto (0) chunks runs of at least three
+  flush intervals by the interval, as the JAX package does.
 - Host syncs: metrics stay on the device and are copied to the host
-  asynchronously; the host reads them only at flush boundaries, leaving the
-  newest step in flight. Each flush feeds the console's live panel.
+  asynchronously, once per dispatch; the host reads them only at flush
+  boundaries, leaving the newest dispatch in flight. Each flush feeds the
+  console's live panel.
 - Checkpoints: params, AdamW state and EMA as trees under the params' leaf
   paths (``utils/pytree_io.py``), with the next step; since a step's draws
   depend only on ``(seed, step)``, a restored run replays the unbroken one.
@@ -21,7 +33,7 @@ the guarded two-group AdamW on ``-ELBO``, update the EMA.
   in plain PyTorch (the JAX package has no kernel there either). Its draws
   come from ``pretrain_draws``, which a test can replace.
 
-Not ported yet: multi-device meshes and ``steps_per_call`` > 1 (it raises).
+Not ported yet: multi-device meshes.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from viforsdes_tpu_torch.core.priors import Prior
 from viforsdes_tpu_torch.core.sde import SDE
 from viforsdes_tpu_torch.core.solvers import euler_maruyama
 from viforsdes_tpu_torch.core.state_space import StateSpace
+from viforsdes_tpu_torch.inference.chunk import TrainChunk, pack_metrics
 from viforsdes_tpu_torch.inference.constants import (
     LOSS_EMA_DECAY,
     MAX_CONSECUTIVE_NONFINITE_STEPS,
@@ -153,14 +166,15 @@ class VariationalInferenceTrainer:
         device: torch.device | str = "cuda",
         x0: Tensor | None = None,
     ) -> None:
-        if config.steps_per_call > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (several steps per dispatch, a CUDA graph in "
-                "the port) is not ported yet; use 0 or 1"
-            )
         self.device = resolve_device(device)
         self.sde = sde
         self.observations = observations
+        obs_matrix = getattr(observation_likelihood, "obs_matrix", None)
+        if isinstance(observation_likelihood, GaussianObservationLikelihood) and obs_matrix is not None:
+            # the operator lives on the device once, not copied in every step
+            observation_likelihood = observation_likelihood.model_copy(
+                update={"obs_matrix": obs_matrix.to(self.device)}
+            )
         self.observation_likelihood = observation_likelihood
         self.prior = prior
         self.time_horizon = float(time_horizon)
@@ -240,6 +254,7 @@ class VariationalInferenceTrainer:
         self._completed_steps = 0
         self.evidence_lower_bound_history: list[float] = []
         self.best_evidence_lower_bound = float("-inf")
+        self._train_chunks: dict[int, TrainChunk] = {}
 
     # ------------------------------------------------------------- state
 
@@ -290,15 +305,14 @@ class VariationalInferenceTrainer:
             kind="trainer",
         )
         opt = trees["opt_state"]
-        self.flat_params = self.layout.pack(trees["params"], self.device)
-        self.flat_ema = self.layout.pack(trees["ema"], self.device)
-        self.opt_state = {
-            "count": opt["count"].to(self.device, torch.int32),
-            "mu": self.layout.pack(opt["mu"], self.device),
-            "nu": self.layout.pack(opt["nu"], self.device),
-            "notfinite_count": opt["notfinite_count"].to(self.device, torch.int32),
-            "total_notfinite": opt["total_notfinite"].to(self.device, torch.int32),
-        }
+        # into the existing buffers: a captured chunk holds their addresses
+        with torch.no_grad():
+            for flats, tree in ((self.flat_params, trees["params"]), (self.flat_ema, trees["ema"]),
+                                (self.opt_state["mu"], opt["mu"]), (self.opt_state["nu"], opt["nu"])):
+                for g, restored in self.layout.pack(tree, self.device).items():
+                    flats[g].copy_(restored)
+            for k in ("count", "notfinite_count", "total_notfinite"):
+                self.opt_state[k].copy_(opt[k])
         self.evidence_lower_bound_history = list(meta["evidence_lower_bound_history"])
         self.best_evidence_lower_bound = meta["best_evidence_lower_bound"]
         self._completed_steps = int(meta["next_step"])
@@ -306,22 +320,53 @@ class VariationalInferenceTrainer:
 
     # ------------------------------------------------------------ train step
 
-    def _annealed_obs_variance(self, step: int | None) -> float:
-        """Claimed observation variance at ``step`` under the log-linear anneal
-        (fp32 arithmetic, as the JAX package computes it); ``None`` is the
-        final value, for evaluation after training."""
-        vf = np.float32(self.config.obs_variance_final)
-        if step is None:
-            return float(vf)
+    def _obs_variance_schedule(self, steps: np.ndarray) -> np.ndarray:
+        """Claimed observation variance at each of ``steps`` under the
+        log-linear anneal, in fp32 arithmetic as the JAX package computes it."""
+        vf = float(self.config.obs_variance_final)
         v0 = float(self.observation_likelihood.variance)
         t = np.clip(
-            (np.float32(step) - np.float32(self.config.theta_warmup_steps))
+            (steps.astype(np.float32) - np.float32(self.config.theta_warmup_steps))
             / np.float32(self.config.obs_variance_anneal_steps),
             np.float32(0.0),
             np.float32(1.0),
         )
-        log_v = (np.float32(1.0) - t) * np.float32(np.log(v0)) + t * np.float32(np.log(float(vf)))
-        return float(np.exp(np.float32(log_v), dtype=np.float32))
+        log_v = (np.float32(1.0) - t) * np.float32(np.log(v0)) + t * np.float32(np.log(vf))
+        return np.exp(log_v, dtype=np.float32)
+
+    def _step_schedule(self, first_step: int, length: int) -> np.ndarray:
+        """The host-side inputs of steps ``first_step .. first_step + length -
+        1`` as fp32 ``[2, length]``: the theta scale (0.0 during the warmup,
+        else 1.0) and the anneal's claimed observation variance (1.0, unread,
+        when no anneal is set)."""
+        steps = np.arange(first_step, first_step + length)
+        out = np.ones((2, length), dtype=np.float32)
+        out[0] = steps >= self.config.theta_warmup_steps
+        if self.config.obs_variance_final is not None:
+            out[1] = self._obs_variance_schedule(steps)
+        return out
+
+    def _upload(self, values: np.ndarray, out: Tensor | None = None) -> Tensor:
+        """``values`` on the trainer's device (into ``out`` if given) without
+        waiting for the stream: through a fresh pinned buffer, copied
+        asynchronously (the caching host allocator keeps the buffer until the
+        copy is done)."""
+        host = torch.from_numpy(values)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        if out is None:
+            return host.to(self.device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
+
+    def _annealed_obs_variance(self, step: int | None) -> Tensor:
+        """Claimed observation variance at ``step`` as a 0-dim fp32 tensor on
+        the trainer's device; ``None`` is the final value, for evaluation
+        after training."""
+        if step is None:
+            value = np.float32(self.config.obs_variance_final)
+        else:
+            value = self._obs_variance_schedule(np.asarray([step]))[0]
+        return self._upload(np.asarray(value, dtype=np.float32))
 
     def draws(self, step: int) -> list[Draws]:
         """The standard-normal draws of one training step, one pair per
@@ -342,10 +387,13 @@ class VariationalInferenceTrainer:
         return out
 
     def _elbo_from_params(
-        self, params: dict, theta_eps: Tensor, path_noise: Tensor, step: int | None = None
+        self, params: dict, theta_eps: Tensor, path_noise: Tensor, step: int | None = None,
+        obs_variance: Tensor | None = None,
     ) -> EvidenceLowerBoundResult:
         """The ELBO of one microbatch from injected draws: ``theta_eps
-        [B/iw, P]`` and time-major ``path_noise [T, B, D]``."""
+        [B/iw, P]`` and time-major ``path_noise [T, B, D]``. Under the
+        observation-variance anneal the claimed variance is ``obs_variance``
+        (a 0-dim device tensor) or else the anneal's at ``step``."""
         iw = self.config.iw_samples
         theta = self.model.theta_posterior.rsample(params["theta"], theta_eps)
         if iw > 1:
@@ -364,9 +412,11 @@ class VariationalInferenceTrainer:
             self.state_space,
             path_noise,
             compute_dtype=self.config.compute_dtype.value_dtype,
+            sde=self.sde,
         )
         if self.config.obs_variance_final is not None:
-            obs_variance = self._annealed_obs_variance(step)
+            if obs_variance is None:
+                obs_variance = self._annealed_obs_variance(step)
         elif self.config.learn_obs_variance:
             obs_variance = OBS_VARIANCE_FLOOR + torch.exp(params["obs"]["log_variance"])
         else:
@@ -392,19 +442,21 @@ class VariationalInferenceTrainer:
         opt_state: dict,
         ema: dict[str, Tensor],
         draws: Sequence[Draws],
-        theta_scale: float | None = None,
-        step: int | None = None,
+        theta_scale: Tensor | float | None = None,
+        *,
+        obs_variance: Tensor | None = None,
     ) -> tuple[dict[str, Tensor], dict, dict[str, Tensor], StepMetrics]:
         """One optimizer step on flat group buffers, updated in place.
         ``draws`` holds one pair per microbatch (``grad_accum_steps``):
         averaging the microbatch gradients reproduces the full-batch gradient
         exactly, since IWAE groups never span microbatches. ``theta_scale``
         0.0 freezes the applied theta (and observation-variance) update during
-        the warmup; ``step`` feeds the observation-variance anneal."""
-        if self.config.obs_variance_final is not None and step is None:
+        the warmup; under the observation-variance anneal ``obs_variance``
+        (a 0-dim device tensor) is the step's claimed variance."""
+        if self.config.obs_variance_final is not None and obs_variance is None:
             raise ValueError(
-                "obs_variance_final is set: training steps must thread the "
-                "step index into _step_math"
+                "obs_variance_final is set: training steps must pass the step's "
+                "claimed variance (obs_variance) into _step_math"
             )
         if len(draws) != self.config.grad_accum_steps:
             raise ValueError(f"expected {self.config.grad_accum_steps} draws, got {len(draws)}")
@@ -413,7 +465,7 @@ class VariationalInferenceTrainer:
         for theta_eps, path_noise in draws:
             leaves = {g: params[g].detach().requires_grad_() for g in GROUPS}
             result = self._elbo_from_params(
-                self.layout.unpack(leaves), theta_eps, path_noise, step=step
+                self.layout.unpack(leaves), theta_eps, path_noise, obs_variance=obs_variance
             )
             g_micro = torch.autograd.grad(
                 -result.evidence_lower_bound, [leaves[g] for g in GROUPS], allow_unused=True
@@ -456,17 +508,42 @@ class VariationalInferenceTrainer:
         return params, opt_state, ema, metrics
 
     def train_step(self, step: int) -> StepMetrics:
-        """Run training step ``step`` on the trainer's state."""
-        warmup = self.config.theta_warmup_steps
-        theta_scale = (0.0 if step < warmup else 1.0) if warmup > 0 else None
-        step_arg = step if self.config.obs_variance_final is not None else None
-        self.flat_params, self.opt_state, self.flat_ema, metrics = self._step_math(
+        """Run training step ``step`` on the trainer's state. Its theta scale
+        and claimed observation variance enter as device tensors, as in a
+        chunk (``TrainChunk``), so both dispatch paths run the same ops."""
+        warmup = self.config.theta_warmup_steps > 0
+        anneal = self.config.obs_variance_final is not None
+        theta_scale = obs_variance = None
+        if warmup or anneal:
+            schedule = self._upload(self._step_schedule(step, 1))
+            theta_scale = schedule[0, 0] if warmup else None
+            obs_variance = schedule[1, 0] if anneal else None
+        *_, metrics = self._step_math(
             self.flat_params, self.opt_state, self.flat_ema, self.draws(step),
-            theta_scale, step=step_arg,
+            theta_scale, obs_variance=obs_variance,
         )
         self.step = step
         self._completed_steps = step + 1
         return metrics
+
+    def _get_train_chunk(self, length: int) -> TrainChunk:
+        """The runner of ``length`` steps per call, built once per length
+        (the JAX package caches its scanned chunks the same way)."""
+        chunk = self._train_chunks.get(length)
+        if chunk is None:
+            chunk = self._train_chunks[length] = TrainChunk(self, length)
+        return chunk
+
+    def _resolve_steps_per_call(self, update_interval: int) -> int:
+        """Steps per dispatch: ``steps_per_call``, where auto (0) chunks a run
+        of at least three flush intervals by the interval and runs a shorter
+        one step by step; chunks never span a flush, so the interval caps
+        it."""
+        spc = self.config.steps_per_call
+        if spc == 0:
+            remaining = self.config.n_iterations - self._completed_steps
+            spc = update_interval if remaining >= 3 * update_interval else 1
+        return max(1, min(spc, update_interval))
 
     # ----------------------------------------------------------------- train
 
@@ -486,13 +563,24 @@ class VariationalInferenceTrainer:
         loss_ema = 0.0
         for i, elbo in enumerate(self.evidence_lower_bound_history):
             loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if i > 0 else -elbo
-        # (first step, host copy of the packed metrics, event marking the copy)
+        # (first step, host copy of the dispatch's metrics rows [k, 8 + P],
+        # event marking the copy)
         pending: list[tuple[int, Tensor, torch.cuda.Event | None]] = []
 
+        def enqueue(first_step: int, rows: Tensor) -> None:
+            if rows.is_cuda:
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                pending.append((first_step, host, event))
+            else:  # a chunk's rows are overwritten by its next call
+                pending.append((first_step, rows.clone(), None))
+
         def flush(progress, keep_last: int = 0) -> None:
-            """Read pending metrics on the host. ``keep_last=1`` leaves the
-            newest step's copy unread, so the device keeps working on it while
-            the host catches up."""
+            """Read pending metrics on the host, split into one row per step.
+            ``keep_last=1`` leaves the newest dispatch's copy unread, so the
+            device keeps working on it while the host catches up."""
             nonlocal loss_ema
             if len(pending) <= keep_last:
                 return
@@ -501,23 +589,23 @@ class VariationalInferenceTrainer:
             if take[-1][2] is not None:
                 take[-1][2].synchronize()
             worst = 0
-            for step, host, _ in take:
-                row = host.tolist()
-                elbo = row[0]
-                loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if step > 0 else -elbo
-                self.evidence_lower_bound_history.append(elbo)
-                if elbo > self.best_evidence_lower_bound:
-                    self.best_evidence_lower_bound = elbo
-                if callback is not None:
-                    callback(step, elbo)
-                worst = max(worst, int(row[7]))
+            for first_step, host, _ in take:
+                for step, row in enumerate(host.tolist(), start=first_step):
+                    elbo = row[0]
+                    loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if step > 0 else -elbo
+                    self.evidence_lower_bound_history.append(elbo)
+                    if elbo > self.best_evidence_lower_bound:
+                        self.best_evidence_lower_bound = elbo
+                    if callback is not None:
+                        callback(step, elbo)
+                    worst = max(worst, int(row[7]))
+            last_step = step
             if worst >= MAX_CONSECUTIVE_NONFINITE_STEPS:
                 raise RuntimeError(
                     f"training diverged: {worst} consecutive non-finite update "
-                    f"steps by step {take[-1][0]} (params remain at their last "
+                    f"steps by step {last_step} (params remain at their last "
                     f"finite values; inspect the latest checkpoint)"
                 )
-            last_step = take[-1][0]
             progress.update(
                 step=last_step,
                 loss=loss_ema / (1 - LOSS_EMA_DECAY ** (last_step + 1)),
@@ -529,29 +617,36 @@ class VariationalInferenceTrainer:
             )
 
         checkpointing = checkpoint_every is not None and checkpoint_path is not None
+        n_iterations = self.config.n_iterations
+        chunk = self._resolve_steps_per_call(update_interval)
+
+        def is_boundary(completed: int) -> bool:
+            """Host-sync points in completed steps (flushes and checkpoints):
+            no chunk spans one."""
+            return completed % update_interval == 0 or (checkpointing and completed % checkpoint_every == 0)
+
         with self.console.training_progress(
-            self.config.n_iterations,
+            n_iterations,
             update_interval=update_interval,
             param_names=self.param_names,
             device=self.device,
         ) as progress:
-            for step in range(self._completed_steps, self.config.n_iterations):
-                metrics = self.train_step(step)
-                packed = torch.cat([torch.stack([v.float() for v in metrics[:7]]),
-                                    metrics.notfinite_count.float()[None],
-                                    metrics.param_means.float()])
-                if packed.is_cuda:
-                    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-                    host.copy_(packed, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record()
-                    pending.append((step, host, event))
-                else:
-                    pending.append((step, packed, None))
-                completed = step + 1
-                if completed % update_interval == 0:
+            step = self._completed_steps
+            while step < n_iterations:
+                seg_end = step + 1
+                while seg_end < n_iterations and not is_boundary(seg_end):
+                    seg_end += 1
+                while step < seg_end:
+                    # a segment's tail shorter than a chunk runs step by step
+                    if chunk > 1 and seg_end - step >= chunk:
+                        enqueue(step, self._get_train_chunk(chunk)(step))
+                        step += chunk
+                    else:
+                        enqueue(step, pack_metrics(self.train_step(step))[None])
+                        step += 1
+                if step % update_interval == 0:
                     flush(progress, keep_last=1)
-                if checkpointing and completed % checkpoint_every == 0:
+                if checkpointing and step % checkpoint_every == 0:
                     flush(progress)
                     self.save_checkpoint(checkpoint_path)
             flush(progress)
@@ -807,7 +902,12 @@ class VariationalInferenceTrainer:
         any step); the EMA is left as it is, also as the JAX package does."""
         with torch.no_grad():
             self.params["theta"]["mean"].copy_(torch.as_tensor(mean, dtype=torch.float32))
-        self.opt_state = self.optimizer.init(self.flat_params)
+            # in place: a captured chunk holds the state's addresses
+            for g in GROUPS:
+                self.opt_state["mu"][g].zero_()
+                self.opt_state["nu"][g].zero_()
+            for k in ("count", "notfinite_count", "total_notfinite"):
+                self.opt_state[k].zero_()
 
 
 def _median(v: Tensor) -> float:

@@ -90,8 +90,10 @@ class VariationalPosterior:
         seed: int = 0,
         sde=None,
     ) -> None:
-        # kept for the API of the JAX package, whose matched head mode
-        # samples with the SDE's diffusion (not ported: the head refuses it)
+        # the diffusion-matched head (cholesky="matched") evaluates the SDE's
+        # diffusion inside the recurrence, so its paths need the SDE
+        if sde is None and model.head.cholesky == "matched":
+            raise ValueError("head cholesky='matched' needs the sde passed to the posterior")
         self.sde = sde
         self.model = model
         self.params = params
@@ -136,6 +138,7 @@ class VariationalPosterior:
             self.state_space,
             noise,
             compute_dtype=torch.float32,  # evaluation runs at full precision
+            sde=self.sde,
         )
         return theta, sample.x
 
