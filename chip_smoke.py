@@ -74,7 +74,20 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 12. ``[matched]``: ``infer()`` with ``HeadConfig(cholesky="matched")`` at the
    OU bench configuration, 5 steps and ``summary(64)``: finite ELBOs, no
    path-sampler kernel launched (the mode runs the head's loop, as in the JAX
-   package), and ``sampler="pallas"`` refused.
+   package), and ``sampler="pallas"`` refused;
+13. ``[dp]``: data-parallel training (``parallel/``) at
+   ``examples/highdim_ou_dp.py``'s configuration (d=32, batch 4096, SiT
+   256 x 4 x 8, GRU 64 x 2), cut to 10 steps in graphs of 5 and to 4
+   microbatches a step: ``infer(mesh=make_data_mesh())`` on a world of one
+   process over NCCL (the all-reduces captured inside the graphs), then
+   ``infer(mesh=None)`` from the same seed, bitwise equal in history, params,
+   EMA and moments; each arm's ms/step (replayed windows), peak memory and
+   graph pool; K1/K2 and NCCL kernels counted in a profile of one replay;
+   ``summary(500)``, ``diagnostics()`` and ``save`` -> ``load`` on the mesh
+   arm. Then two ranks sharing the card over gloo (spawned, ``FileStore``) at
+   the OU bench configuration against the run without a mesh: ELBO within
+   ``ELBO_RTOL``, params within the backward bars, the ranks bitwise equal,
+   and ``steps_per_call=5`` refused on that mesh (semantics, not speed).
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -336,6 +349,8 @@ SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     # D=32 (examples/highdim_ou_dp.py: 528 tril values, 560 outputs a row)
     (48, 20, 32, 64, 2, "full", False, DT),
     (13, 7, 32, 64, 2, "full", True, DT),
+    # the [dp] path's microbatch: batch 4096 in 4 microbatches on one card
+    (1024, 100, 32, 64, 2, "full", False, DT),
 ]
 
 # more sampler shapes for [times]/[steps], timed beside their bound:
@@ -829,7 +844,7 @@ def ou_problem(vt):
     )
 
 
-def make_trainer(vt, sampler: str, n_iterations: int, **training):
+def make_trainer(vt, sampler: str, n_iterations: int, mesh=None, **training):
     sde, obs, lik, prior = ou_problem(vt)
     return vt.VariationalInferenceTrainer(
         sde, obs, lik, prior, HORIZON,
@@ -839,6 +854,7 @@ def make_trainer(vt, sampler: str, n_iterations: int, **training):
         state_positive_dims=[],
         sde_param_positive_dims=[0, 2],
         console=vt.Console(enabled=False),
+        mesh=mesh,
         device="cuda",
     )
 
@@ -1509,6 +1525,353 @@ def phase_matched(torch, vt) -> dict:
     return {"wall_s": wall, "history": history}
 
 
+# ------------------------------------------------- data parallel (parallel/)
+
+# examples/highdim_ou_dp.py's configuration: d=32, batch 4096 (global), the
+# example's encoder and head; cut to DP_STEPS steps (the example runs 5000) in
+# graphs of DP_K steps, and to DP_ACCUM microbatches a step, since one card
+# cannot hold 4096 paths in one pass
+DP_DIM, DP_BATCH, DP_ACCUM = 32, 4096, 4
+DP_STEPS, DP_K = 10, 5
+DP_ENC = dict(hidden_dim=256, num_heads=4, depth=8)
+DP_WINDOWS = 2        # timed windows of DP_K steps per arm
+DP_GLOO_STEPS = 5     # steps of the two-rank gloo run at the OU bench config
+
+
+def dp_problem(torch, vt):
+    """The d=32 OU of examples/highdim_ou_dp.py (shared kappa, mu, sigma;
+    diffusion sigma I), observed every 1.0 on a path simulated at dt 0.01
+    from a seeded generator."""
+
+    class HighDimOU:
+        state_dim = DP_DIM
+        sde_param_dim = 3
+
+        def drift(self, x, p):
+            return p[..., 0:1] * (p[..., 1:2] - x)
+
+        def diffusion(self, x, p):
+            eye = torch.eye(DP_DIM, dtype=x.dtype, device=x.device)
+            return p[..., 2:3][..., None] * eye
+
+    sde = HighDimOU()
+    gen = torch.Generator().manual_seed(3)
+    traj = vt.euler_maruyama(sde, 2.0 * torch.ones(1, DP_DIM), torch.tensor([[1.2, 0.8, 0.5]]), HORIZON, 0.01,
+                             generator=gen)
+    idx = list(range(0, traj.shape[1], 100))
+    if not bool(torch.isfinite(traj).all()):
+        raise AssertionError("[dp] observations: non-finite simulation")
+    observations = vt.Observations(times=[i * 0.01 for i in idx], values=traj[0, idx])
+    return (sde, observations, vt.GaussianObservationLikelihood(variance=0.1),
+            vt.Prior(type=vt.PriorType.NORMAL, mean=0.0, std=1.0, dim=3))
+
+
+@contextlib.contextmanager
+def recorded_chunks():
+    """The training chunks called inside the block (``TrainChunk.__call__``,
+    wrapped for the block), in the order of their first call."""
+    from viforsdes_tpu_torch.inference.chunk import TrainChunk
+
+    seen: list = []
+    saved = TrainChunk.__call__
+
+    def call(self, first_step):
+        if not any(c is self for c in seen):
+            seen.append(self)
+        return saved(self, first_step)
+
+    TrainChunk.__call__ = call
+    try:
+        yield seen
+    finally:
+        TrainChunk.__call__ = saved
+
+
+@contextlib.contextmanager
+def counted_all_reduces(torch):
+    """Calls of ``torch.distributed.all_reduce`` inside the block: all of
+    them, and those made while the current stream was capturing a graph."""
+    import torch.distributed as dist
+
+    counts = {"calls": 0, "captured": 0}
+    saved = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        counts["calls"] += 1
+        counts["captured"] += int(torch.cuda.is_current_stream_capturing())
+        return saved(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield counts
+    finally:
+        dist.all_reduce = saved
+
+
+def dp_windows(torch, chunk, first_step: int) -> list[float]:
+    """ms/step of ``DP_WINDOWS`` replays of ``chunk``, each ended by a
+    synchronize."""
+    out = []
+    for w in range(DP_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(first_step + w * DP_K)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / DP_K)
+    return out
+
+
+def dp_arm(torch, vt, mesh, label: str):
+    """``infer()`` at the d=32 configuration, ``DP_STEPS`` steps in graphs of
+    ``DP_K``, on ``mesh`` (or none): its posterior, its chunk and what it
+    measured (the state after the run copied to the host)."""
+    sde, obs, lik, prior = dp_problem(torch, vt)
+    config = vt.InferenceConfig(
+        training=vt.TrainingConfig(time_step=DT, batch_size=DP_BATCH, n_iterations=DP_STEPS,
+                                   grad_accum_steps=DP_ACCUM, steps_per_call=DP_K),
+        encoder=vt.EncoderConfig(**DP_ENC),
+        head=vt.HeadConfig(**HEAD),
+        sde_param_positive_dims=[0, 2],
+        param_names=["kappa", "mu", "sigma"],
+        console=vt.Console(enabled=False),
+        mesh=mesh,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_chunks() as chunks, counted_all_reduces(torch) as reduces:
+        posterior = vt.infer(sde, obs, lik, prior, HORIZON, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_counts()
+    if len(chunks) != 1 or chunks[0].length != DP_K or chunks[0].graph is None:
+        raise AssertionError(f"[dp] {label}: expected one captured {DP_K}-step chunk, got {len(chunks)}")
+    chunk = chunks[0]
+    history = posterior.evidence_lower_bound_history
+    state = {k: v.cpu() for k, v in trainer_state(chunk.trainer).items()}
+    pool = graph_pool_gib(torch, chunk.graph)
+    log(f"[dp] {label}: infer() {DP_STEPS} steps (one eager chunk of {DP_K}, the capture, "
+        f"{DP_STEPS // DP_K - 1} replay) in {wall:.2f} s; peak {peak:.3f} GiB allocated; the graph's private "
+        f"pool holds {pool} GiB; launches {launches}; all_reduce calls {reduces['calls']}, "
+        f"{reduces['captured']} of them inside the capture")
+    log(f"[dp] {label}: ELBO history {[round(v, 3) for v in history]}")
+    if len(history) != DP_STEPS or not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"[dp] {label}: missing or non-finite ELBO")
+    # the eager chunk and the capture each call the wrappers once per
+    # microbatch and step; a replay calls none
+    per_chunk = DP_ACCUM * DP_K
+    expected = {"K1": 2 * per_chunk, "K2": 2 * per_chunk, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+    if launches != expected:
+        raise AssertionError(f"[dp] {label}: launches {launches}, expected {expected}")
+    # per step: one all-reduce per parameter group and one of the ELBO terms
+    want = {"calls": 2 * 3 * DP_K, "captured": 3 * DP_K} if mesh is not None else {"calls": 0, "captured": 0}
+    if reduces != want:
+        raise AssertionError(f"[dp] {label}: all_reduce calls {reduces}, expected {want}")
+    return posterior, chunk, {"wall_s": wall, "peak_gib": peak, "pool_gib": pool, "history": history,
+                              "state": state, "launches": launches}
+
+
+def dp_profile(torch, chunk, first_step: int) -> dict:
+    """One replay under the profiler: device time, K1/K2 and NCCL kernels
+    counted by name, K1+K2's share of the device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk(first_step)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not events:
+        raise AssertionError("[dp] the profile of one replay holds no device kernel")
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    total_us = sum(getattr(e, attr) for e in events)
+    counts, us = {}, {}
+    for kern in ("K1", "K2"):
+        hit = [e for e in events if re.search(KERNEL_NAMES[kern], e.key)]
+        counts[kern], us[kern] = sum(e.count for e in hit), sum(getattr(e, attr) for e in hit)
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    counts["nccl"] = sum(e.count for e in nccl)
+    share = (us["K1"] + us["K2"]) / total_us
+    log(f"[dp] profile of one replay ({DP_K} steps): device kernel time {total_us / 1e3 / DP_K:.3f} ms/step in "
+        f"{sum(e.count for e in events)} launches; by name {json.dumps(counts)} "
+        f"(K1/K2 expected {DP_ACCUM * DP_K} each); K1 {us['K1'] / 1e3 / DP_K:.3f} + K2 "
+        f"{us['K2'] / 1e3 / DP_K:.3f} ms/step: {share:.3f} of the device time; NCCL kernels "
+        f"{[e.key[:60] for e in nccl]}")
+    for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
+        log(f"[dp]   {getattr(e, attr) / DP_K / 1e3:8.3f} ms/step  x{e.count:<4d} {e.key[:90]}")
+    if counts["K1"] != DP_ACCUM * DP_K or counts["K2"] != DP_ACCUM * DP_K:
+        raise AssertionError(f"[dp] kernel counts of one replay {counts}")
+    return {"device_ms": total_us / 1e3 / DP_K, "counts": counts, "k1k2_share": share,
+            "k1_ms": us["K1"] / 1e3 / DP_K, "k2_ms": us["K2"] / 1e3 / DP_K}
+
+
+def eager_nccl_kernels(torch) -> int:
+    """NCCL kernels launched by one eager in-place ``all_reduce`` (SUM) of
+    4 MB on the default group, counted in a profile."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA" and "nccl" in e.key.lower())
+
+
+def phase_dp_mesh(torch, vt) -> dict:
+    """The d=32, batch-4096 configuration through ``infer(mesh=make_data_mesh())``
+    (a world of one process, NCCL, the all-reduces inside the graphs) and
+    through ``infer(mesh=None)`` from the same seed, one arm after the other:
+    bitwise equal; each arm's ms/step, peak and graph pool; a profile of one
+    replay; on the mesh arm summary, diagnostics and save -> load."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from viforsdes_tpu_torch.utils.tree import tree_items
+
+    mesh = vt.make_data_mesh()
+    log(f"[dp] mesh {mesh.mesh.tolist()} over {dist.get_world_size()} process(es), backend "
+        f"{dist.get_backend()}; cuts: grad_accum_steps={DP_ACCUM} (4096 paths do not fit one pass), "
+        f"{DP_STEPS} steps instead of 5000, steps_per_call={DP_K}")
+    out = {}
+    posterior, chunk, arm = dp_arm(torch, vt, mesh, "mesh")
+    log(f"[dp] one eager all_reduce on this world of {dist.get_world_size()} launches "
+        f"{eager_nccl_kernels(torch)} NCCL kernel(s)")
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = posterior.summary(n_samples=500)
+    diag = posterior.diagnostics()
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.path.join(tmp, "highdim_ou_posterior.npz")
+        posterior.save(saved)
+        loaded = vt.VariationalPosterior.load(saved, posterior.model, posterior.prior, posterior.observations)
+    torch.cuda.synchronize()
+    for (path, a), (_, b) in zip(tree_items(loaded.ema_params), tree_items(posterior.ema_params)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[dp] EMA leaf {path} differs after save and load")
+    check_summary(torch, summary, (101, DP_DIM))
+    log(f"[dp] mesh: summary(500) + diagnostics + save -> load in {time.perf_counter() - t0:.2f} s "
+        f"(launches {read_counts()}); EMA leaves bitwise equal after load; theta mean "
+        f"{summary.sde_parameter_mean.tolist()} (true 1.2, 0.8, 0.5 after 5000 steps); final ELBO "
+        f"{diag.final_evidence_lower_bound:.3f}")
+    arm["profile"] = dp_profile(torch, chunk, DP_STEPS)
+    arm["window_ms"] = dp_windows(torch, chunk, DP_STEPS + DP_K)
+    out["mesh"] = arm
+    del posterior, chunk, loaded, summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    posterior, chunk, arm = dp_arm(torch, vt, None, "no mesh")
+    arm["window_ms"] = dp_windows(torch, chunk, DP_STEPS)
+    out["none"] = arm
+    del posterior, chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bitwise = {"history": out["mesh"]["history"] == out["none"]["history"]}
+    for key, a in out["mesh"]["state"].items():
+        bitwise[key] = bool(torch.equal(a, out["none"]["state"][key]))
+    for name in ("mesh", "none"):
+        w = out[name]["window_ms"]
+        out[name]["median_ms"] = statistics.median(w)
+    log(f"[dp] mesh against no mesh, same seed: bitwise equal {json.dumps(bitwise)}; ms/step (windows of "
+        f"{DP_K} replayed steps, synchronized): mesh {out['mesh']['window_ms']}, no mesh {out['none']['window_ms']}")
+    if not all(bitwise.values()):
+        raise AssertionError("[dp] the world-1 mesh run differs from the run without a mesh")
+    return out
+
+
+def dp_gloo_child(rank: int, store_path: str, out_dir: str) -> None:
+    """One of two ranks sharing the card over gloo: the OU bench config, the
+    global batch split in two, one step per call."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import viforsdes_tpu_torch as vt
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 2), rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = vt.make_data_mesh()
+        trainer = make_trainer(vt, "auto", DP_GLOO_STEPS, mesh=mesh, steps_per_call=1)
+        history = trainer.train().evidence_lower_bound_history
+        try:
+            make_trainer(vt, "auto", DP_GLOO_STEPS, mesh=mesh, steps_per_call=5)
+            refused = ""
+        except ValueError as err:
+            refused = str(err)
+        torch.cuda.synchronize()
+        torch.save({"history": history, "refused": refused, "backend": dist.get_backend(),
+                    "state": {k: v.cpu() for k, v in trainer_state(trainer).items()}},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_gloo(torch, vt) -> dict:
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device), spawned on a ``FileStore``: the OU bench config at batch 128
+    global, against the run without a mesh from the same seed. This checks
+    the semantics, not the speed."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ref = make_trainer(vt, "auto", DP_GLOO_STEPS, steps_per_call=1)
+    ref_history = ref.train().evidence_lower_bound_history
+    ref_state = trainer_state(ref)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(dp_gloo_child, args=(os.path.join(tmp, "store"), tmp), nprocs=2, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["history"], ref_history))
+    worst = {key: max_err(ranks[0]["state"][key].cuda(), ref_state[key], BWD_RTOL, BWD_ATOL,
+                          f"[dp] gloo rank 0 {key} against the run without a mesh")
+             for key in ref_state}
+    same = {key: bool(torch.equal(a, ranks[1]["state"][key])) for key, a in ranks[0]["state"].items()}
+    same["history"] = ranks[0]["history"] == ranks[1]["history"]
+    log(f"[dp] gloo, 2 ranks sharing the card (semantics, not speed): backend {ranks[0]['backend']}, batch "
+        f"{BATCH} global ({BATCH // 2} a rank), {DP_GLOO_STEPS} steps in {wall:.2f} s with the spawn; ELBO "
+        f"history against the run without a mesh max rel {rel:.3e} (bar {ELBO_RTOL}); params max |err| "
+        f"{json.dumps(worst)}; rank 0 and rank 1 bitwise equal {json.dumps(same)}")
+    log(f"[dp] gloo: steps_per_call=5 refused: {ranks[0]['refused']}")
+    if len(ranks[0]["history"]) != DP_GLOO_STEPS or rel > ELBO_RTOL:
+        raise AssertionError("[dp] gloo: the two-rank ELBO history differs from the run without a mesh")
+    if not all(same.values()):
+        raise AssertionError("[dp] gloo: the two ranks differ")
+    if "gloo" not in ranks[0]["refused"] or "gloo" not in ranks[1]["refused"]:
+        raise AssertionError("[dp] gloo: steps_per_call=5 was not refused by name")
+    return {"elbo_rel": rel, "worst": worst, "wall_s": wall}
+
+
+def phase_dp(torch, vt, smi: str) -> dict:
+    t0 = time.perf_counter()
+    mesh = phase_dp_mesh(torch, vt)
+    gloo = phase_dp_gloo(torch, vt)
+    m, n, p = mesh["mesh"], mesh["none"], mesh["mesh"]["profile"]
+    log(f"[dp] {smi}: d={DP_DIM} batch {DP_BATCH} ({DP_ACCUM} microbatches), graphs of {DP_K} steps: "
+        f"mesh {m['median_ms']:.2f} ms/step, no mesh {n['median_ms']:.2f}; peak {m['peak_gib']:.3f} / "
+        f"{n['peak_gib']:.3f} GiB, pool {m['pool_gib']} / {n['pool_gib']} GiB; device {p['device_ms']:.2f} "
+        f"ms/step, K1+K2 {p['k1k2_share']:.3f} of it; mesh == no mesh bitwise; gloo 2 ranks within bars, "
+        f"ranks bitwise equal; {time.perf_counter() - t0:.1f} s")
+    return {"mesh": mesh, "gloo": gloo}
+
+
 def main() -> int:
     import torch
 
@@ -1518,31 +1881,43 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import viforsdes_tpu_torch as vt
 
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     smi, kind = phase_card(torch)
     phase_build(torch)
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
     errs["K5"], errs["K6"], errs["K7"] = phase_flash(torch)
+    mark("build and kernel checks")
     times, bounds = phase_kernel_times(torch)
     att, att_bounds = phase_attention_times(torch)
     bounds.update(att_bounds)
+    mark("kernel times")
 
     phase_main_path(torch, vt)
     phase_step_parity(torch, vt)
     trainer, step, stats = phase_step_times(torch, vt)
     phase_profile(torch, trainer, step, stats["auto"]["median_ms"], "OU bench config")
     del trainer
+    mark("OU path")
 
     launches = phase_lorenz_path(torch, vt)
     phase_lorenz_parity(torch, vt)
     trainer, step, stats = phase_lorenz_times(torch, vt)
     phase_profile(torch, trainer, step, stats["kernels"]["median_ms"], "Lorenz-63", n=2)
     del trainer
+    mark("Lorenz path")
     phase_examples(torch, vt)
     phase_graph_ou(torch, vt)
     phase_graph_lorenz(torch, vt)
     phase_matched(torch, vt)
+    mark("examples, graphs and matched head")
+    phase_dp(torch, vt, smi)
     torch.cuda.synchronize()
+    mark("data parallel")
 
     rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)
         ("K1", "sde_sampler_fwd", "sde_sampler_fwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:141",

@@ -68,8 +68,9 @@ def test_compute_dtype():
 def test_inference_config_replaces_mesh_with_device():
     j = {f.name: f for f in dataclasses.fields(jinfer.InferenceConfig)}
     t = {f.name: f for f in dataclasses.fields(tinfer.InferenceConfig)}
-    # the mesh becomes an explicit device; every other field is the JAX one's
-    assert set(t) == (set(j) - {"mesh"}) | {"device"}
+    # the port adds an explicit device beside the mesh; every other field is
+    # the JAX one's
+    assert set(t) == set(j) | {"device"}
     for name in set(t) & set(j):
         assert t[name].default == j[name].default, name
     assert tinfer.InferenceConfig().device == "cuda"

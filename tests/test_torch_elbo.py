@@ -50,12 +50,13 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def make_pair(*, state_positive_dims=(), theta_perturb=False, encoder_perturb=False, **training):
+def make_pair(*, state_positive_dims=(), theta_perturb=False, encoder_perturb=False, mesh=None,
+              **training):
     """A JAX trainer and a port trainer holding the same weights.
     ``encoder_perturb`` gives the SiT modulators and the head's output
     projection weights: at init adaLN-Zero makes every block the identity and
     the zero out_proj hides the encoder from the ELBO, so every encoder
-    gradient would be zero."""
+    gradient would be zero. ``mesh`` goes to the JAX trainer."""
     training = {"time_step": DT, "batch_size": BATCH, "n_iterations": 3,
                 "compute_dtype": "float32", **training}
     variance = 0.1
@@ -71,6 +72,7 @@ def make_pair(*, state_positive_dims=(), theta_perturb=False, encoder_perturb=Fa
         state_positive_dims=list(state_positive_dims),
         sde_param_positive_dims=[0, 2],
         console=Console(enabled=False),
+        mesh=mesh,
     )
     if theta_perturb:  # leave the zero-init so the coupling is exercised
         params = jax.tree.map(lambda a: a, jt.params)

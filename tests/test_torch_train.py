@@ -34,11 +34,12 @@ def _micro_keys(key, accum):
     return [key] if accum == 1 else [jax.random.fold_in(key, i) for i in range(accum)]
 
 
-def _tiny_grads(tt, draws):
-    """Per leaf path: entries where the step's gradient is below 1e-7."""
+def _tiny_grads(tt, draws, step=None):
+    """Per leaf path: entries where the step's gradient is below 1e-7 (at
+    ``step``'s claimed variance under the observation-variance anneal)."""
     leaves = {g: tt.flat_params[g].detach().requires_grad_() for g in GROUPS}
     tree = tt.layout.unpack(leaves)
-    total = sum(-tt._elbo_from_params(tree, e, n).evidence_lower_bound for e, n in draws)
+    total = sum(-tt._elbo_from_params(tree, e, n, step=step).evidence_lower_bound for e, n in draws)
     grads = torch.autograd.grad(total / len(draws), [leaves[g] for g in GROUPS])
     return {p: np.abs(g.numpy()) < 1e-7
             for p, g in tree_items(tt.layout.unpack(dict(zip(GROUPS, grads))))}

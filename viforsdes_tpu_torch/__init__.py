@@ -29,6 +29,7 @@ from viforsdes_tpu_torch.core import (
 from viforsdes_tpu_torch.infer import InferenceConfig, infer
 from viforsdes_tpu_torch.inference.trainer import TrainingState, VariationalInferenceTrainer
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
+from viforsdes_tpu_torch.parallel.mesh import make_data_mesh
 from viforsdes_tpu_torch.posterior.posterior import VariationalPosterior
 from viforsdes_tpu_torch.utils.console import Console
 
@@ -57,4 +58,5 @@ __all__ = [
     "PretrainConfig",
     "ComputeDtype",
     "Console",
+    "make_data_mesh",
 ]

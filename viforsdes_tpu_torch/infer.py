@@ -6,8 +6,11 @@ observation slots and the ELBO's observation indices); ``infer`` builds the
 trainer, resumes it from a checkpoint or pretrains the theta mean, trains
 (writing checkpoints if asked), and returns the ``VariationalPosterior``.
 
-The JAX package's ``mesh`` becomes ``device`` (default ``"cuda"``; a missing
-GPU raises, it never falls back to the CPU).
+``device`` (default ``"cuda"``; a missing GPU raises, it never falls back to
+the CPU) is the port's own field. ``mesh`` (``make_data_mesh``) trains data
+parallel, one process per rank, with ``batch_size`` the global batch; the
+trainer then runs on the rank's mesh device, and a ``device`` that names
+another device raises. Every rank returns the same posterior.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from pydantic import BaseModel, ConfigDict, model_validator
 from torch import Tensor
+from torch.distributed.device_mesh import DeviceMesh
 from typing_extensions import Self
 
 from viforsdes_tpu_torch.config import (
@@ -51,6 +55,7 @@ class InferenceConfig:
     pretrain: bool | PretrainConfig = False
     console: Console | None = None
     seed: int = 0
+    mesh: DeviceMesh | None = None
     device: torch.device | str = "cuda"
     x0: Tensor | None = None
     # per-step callback(step, elbo); a trainer checkpoint every
@@ -152,6 +157,7 @@ def infer(
         sde_param_init_mean=cfg.sde_param_init_mean,
         sde_param_init_std=cfg.sde_param_init_std,
         seed=cfg.seed,
+        mesh=cfg.mesh,
         device=cfg.device,
         x0=cfg.x0,
     )

@@ -16,7 +16,15 @@ params, AdamW state and EMA, updated in place:
   cuBLAS handles and set the kernels' shared-memory attributes. Then the K
   steps are captured as one CUDA graph on that stream, and every later call
   replays it. A failed capture or replay raises; nothing retries eagerly;
-- on the CPU every call runs its K steps eagerly from the same buffers.
+- on the CPU every call runs its K steps eagerly from the same buffers;
+- under a data mesh (``parallel/mesh.py``) each step's all-reduces are part
+  of the K steps. On NCCL they are captured inside the graph: the eager
+  warm chunk runs them first, which creates the communicator before the
+  capture, and the capture is made in the thread-local mode, so NCCL's
+  watchdog thread may query its events meanwhile. A capture that fails with
+  them inside raises like any other. gloo copies CUDA tensors through the
+  host, which no graph holds, so the trainer refuses ``steps_per_call > 1``
+  on a gloo mesh on a CUDA device (auto picks 1 there).
 
 A graph holds the addresses of the buffers it was captured on, so the trainer
 updates its state in place (``restore_checkpoint``, ``set_theta_mean``), and
@@ -99,8 +107,9 @@ class TrainChunk:
             self._run()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        mode = "global" if self.trainer.mesh is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
                 self._run()
         except RuntimeError as err:
             raise RuntimeError(
@@ -126,11 +135,7 @@ class TrainChunk:
             ) from err
 
     def _state_pointers(self) -> tuple[int, ...]:
-        t = self.trainer
-        s = t.opt_state
-        tensors = [*t.flat_params.values(), *t.flat_ema.values(), *s["mu"].values(), *s["nu"].values(),
-                   s["count"], s["notfinite_count"], s["total_notfinite"]]
-        return tuple(x.data_ptr() for x in tensors)
+        return tuple(x.data_ptr() for x in self.trainer.state_tensors())
 
 
 def pack_metrics(metrics) -> Tensor:

@@ -32,8 +32,20 @@ the guarded two-group AdamW on ``-ELBO``, update the EMA.
   before training, by a global population search or by gradient descent,
   in plain PyTorch (the JAX package has no kernel there either). Its draws
   come from ``pretrain_draws``, which a test can replace.
-
-Not ported yet: multi-device meshes.
+- Data parallel: pass a 1-D ``mesh`` (``parallel/mesh.py``), one process
+  per rank, each building the trainer with the same arguments.
+  ``batch_size`` is the global batch. Each rank draws the step's global
+  draws as the mesh-less trainer does and keeps its contiguous share, so a
+  mesh run takes the mesh-less run's numbers sample for sample; the
+  microbatch gradients are summed locally, then all-reduced (SUM, then
+  divided by the mesh size, so a mesh of one gives the mesh-less bits)
+  with the ELBO terms, and every rank runs the same update on the same
+  numbers: params, EMA and AdamW moments stay bitwise equal across ranks.
+  The state is broadcast from the mesh's first rank after init,
+  ``set_theta_mean`` and ``restore_checkpoint`` (every rank reads the
+  checkpoint file). The console, the step callback and checkpoint writes
+  run on the mesh's first rank only. The local microbatch must be a
+  multiple of ``iw_samples``: an importance group never spans two ranks.
 """
 
 from __future__ import annotations
@@ -44,7 +56,9 @@ from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import Tensor
+from torch.distributed.device_mesh import DeviceMesh
 
 from viforsdes_tpu_torch.config import EncoderConfig, HeadConfig, PretrainConfig, TrainingConfig
 from viforsdes_tpu_torch.core.observations import (
@@ -68,6 +82,7 @@ from viforsdes_tpu_torch.inference.optimizer import GROUPS, ParamLayout, global_
 from viforsdes_tpu_torch.inference.path_sampler import sample_diffusion_paths
 from viforsdes_tpu_torch.inference.types import EvidenceLowerBoundResult
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
+from viforsdes_tpu_torch.parallel.mesh import DataGroup, data_group
 from viforsdes_tpu_torch.utils.console import Console
 from viforsdes_tpu_torch.utils.pytree_io import load_checkpoint, save_checkpoint
 
@@ -163,10 +178,37 @@ class VariationalInferenceTrainer:
         sde_param_init_mean: Tensor | None = None,
         sde_param_init_std: float = 1.0,
         seed: int = 0,
+        mesh: DeviceMesh | None = None,
         device: torch.device | str = "cuda",
         x0: Tensor | None = None,
     ) -> None:
+        self.mesh = mesh
+        self._dp: DataGroup | None = None
+        if mesh is not None:
+            self._dp = data_group(mesh)
+            _check_mesh_batch(config, self._dp.size)
+            requested = torch.device(device)
+            if requested.type != self._dp.device.type or requested.index not in (None, self._dp.device.index):
+                raise ValueError(
+                    f"device {str(requested)!r} is not this rank's mesh device {str(self._dp.device)!r}"
+                )
+            device = self._dp.device
+            if self._dp.rank != 0:  # the console runs on the mesh's first rank only
+                console = Console(enabled=False)
         self.device = resolve_device(device)
+        # a mesh on a CUDA device whose collectives a CUDA graph cannot hold
+        # (gloo copies CUDA tensors through the host) runs one step per call
+        self._uncapturable_mesh = False
+        if self._dp is not None and self.device.type == "cuda":
+            backend = dist.get_backend(self._dp.group)
+            if "nccl" not in backend:
+                self._uncapturable_mesh = True
+                if config.steps_per_call > 1:
+                    raise ValueError(
+                        f"steps_per_call={config.steps_per_call} captures its steps as one CUDA "
+                        f"graph, which cannot hold the collectives of a {backend!r} mesh; use an "
+                        "NCCL mesh, or steps_per_call=1 (auto picks 1 on this mesh)"
+                    )
         self.sde = sde
         self.observations = observations
         obs_matrix = getattr(observation_likelihood, "obs_matrix", None)
@@ -255,6 +297,7 @@ class VariationalInferenceTrainer:
         self.evidence_lower_bound_history: list[float] = []
         self.best_evidence_lower_bound = float("-inf")
         self._train_chunks: dict[int, TrainChunk] = {}
+        self._sync_from_root()
 
     # ------------------------------------------------------------- state
 
@@ -266,6 +309,20 @@ class VariationalInferenceTrainer:
     @property
     def ema_params(self) -> dict:
         return self.layout.unpack(self.flat_ema)
+
+    def state_tensors(self) -> list[Tensor]:
+        """The flat params, EMA and AdamW state buffers (a captured chunk
+        holds their addresses)."""
+        s = self.opt_state
+        return [*self.flat_params.values(), *self.flat_ema.values(), *s["mu"].values(), *s["nu"].values(),
+                s["count"], s["notfinite_count"], s["total_notfinite"]]
+
+    def _sync_from_root(self) -> None:
+        """Under a mesh, broadcast the state from the mesh's first rank into
+        every rank's existing buffers."""
+        if self._dp is not None:
+            for x in self.state_tensors():
+                dist.broadcast(x, src=self._dp.root, group=self._dp.group)
 
     # ---------------------------------------------------- checkpoint / resume
 
@@ -313,6 +370,7 @@ class VariationalInferenceTrainer:
                     flats[g].copy_(restored)
             for k in ("count", "notfinite_count", "total_notfinite"):
                 self.opt_state[k].copy_(opt[k])
+        self._sync_from_root()
         self.evidence_lower_bound_history = list(meta["evidence_lower_bound_history"])
         self.best_evidence_lower_bound = meta["best_evidence_lower_bound"]
         self._completed_steps = int(meta["next_step"])
@@ -370,7 +428,9 @@ class VariationalInferenceTrainer:
 
     def draws(self, step: int) -> list[Draws]:
         """The standard-normal draws of one training step, one pair per
-        microbatch, from the device generator seeded by ``(seed, step)``."""
+        microbatch, from the device generator seeded by ``(seed, step)``.
+        Under a mesh each rank draws the global microbatches and keeps its
+        contiguous share of each."""
         self._train_gen.manual_seed(stream_seed(self.seed, 1, step))
         micro = self.config.batch_size // self.config.grad_accum_steps
         n_theta = micro // self.config.iw_samples
@@ -383,6 +443,11 @@ class VariationalInferenceTrainer:
                 (self.n_steps, micro, self.sde.state_dim),
                 generator=self._train_gen, device=self.device,
             )
+            if self._dp is not None:
+                r, n = self._dp.rank, self._dp.size
+                k, m = n_theta // n, micro // n
+                theta_eps = theta_eps[r * k:(r + 1) * k]
+                noise = noise[:, r * m:(r + 1) * m].contiguous()
             out.append((theta_eps, noise))
         return out
 
@@ -482,6 +547,8 @@ class VariationalInferenceTrainer:
             result = _mean_results(results)
         else:
             result = results[0]
+        if self._dp is not None:
+            grads, result = self._mesh_mean(grads, result)
 
         grad_norm = global_norm(grads)
         updates = self.optimizer.update(grads, opt_state, params, grad_norm)
@@ -506,6 +573,22 @@ class VariationalInferenceTrainer:
             notfinite_count=opt_state["notfinite_count"].clone(),
         )
         return params, opt_state, ema, metrics
+
+    def _mesh_mean(
+        self, grads: dict[str, Tensor], result: EvidenceLowerBoundResult
+    ) -> tuple[dict[str, Tensor], EvidenceLowerBoundResult]:
+        """The mean over the mesh of the ranks' gradients and ELBO terms: an
+        all-reduce SUM per group buffer and one of the six terms, then a
+        division by the mesh size (every rank's terms are means over equal
+        shares, so this is the global batch's mean)."""
+        terms = torch.stack([result.evidence_lower_bound, *result.components])
+        for x in (*grads.values(), terms):
+            dist.all_reduce(x, group=self._dp.group)
+        n = self._dp.size
+        terms = terms / n
+        return {g: v / n for g, v in grads.items()}, EvidenceLowerBoundResult(
+            evidence_lower_bound=terms[0], components=type(result.components)(*terms[1:])
+        )
 
     def train_step(self, step: int) -> StepMetrics:
         """Run training step ``step`` on the trainer's state. Its theta scale
@@ -540,7 +623,9 @@ class VariationalInferenceTrainer:
         one step by step; chunks never span a flush, so the interval caps
         it."""
         spc = self.config.steps_per_call
-        if spc == 0:
+        if spc == 0 and self._uncapturable_mesh:
+            spc = 1
+        elif spc == 0:
             remaining = self.config.n_iterations - self._completed_steps
             spc = update_interval if remaining >= 3 * update_interval else 1
         return max(1, min(spc, update_interval))
@@ -557,7 +642,12 @@ class VariationalInferenceTrainer:
     ) -> TrainingState:
         """Train from the next step to ``config.n_iterations``. With both
         ``checkpoint_every`` and ``checkpoint_path``, a checkpoint is written
-        whenever the completed steps are a multiple of ``checkpoint_every``."""
+        whenever the completed steps are a multiple of ``checkpoint_every``.
+        Under a mesh, ``callback`` and the checkpoint writes run on the mesh's
+        first rank only."""
+        is_root = self._dp is None or self._dp.rank == 0
+        if not is_root:
+            callback = None
         self.console.config_panel(self.config)
         # the smoothed loss, rebuilt from the history on resume
         loss_ema = 0.0
@@ -648,7 +738,8 @@ class VariationalInferenceTrainer:
                     flush(progress, keep_last=1)
                 if checkpointing and step % checkpoint_every == 0:
                     flush(progress)
-                    self.save_checkpoint(checkpoint_path)
+                    if is_root:
+                        self.save_checkpoint(checkpoint_path)
             flush(progress)
 
         return TrainingState(
@@ -908,6 +999,26 @@ class VariationalInferenceTrainer:
                 self.opt_state["nu"][g].zero_()
             for k in ("count", "notfinite_count", "total_notfinite"):
                 self.opt_state[k].zero_()
+        self._sync_from_root()
+
+
+def _check_mesh_batch(config: TrainingConfig, n: int) -> None:
+    """The global batch, each microbatch and each rank's share of it must
+    split evenly; a rank's share holds whole importance groups."""
+    micro = config.batch_size // config.grad_accum_steps
+    if config.batch_size % n != 0:
+        raise ValueError(f"batch_size {config.batch_size} must divide over the {n}-way data mesh")
+    if micro % n != 0:
+        raise ValueError(
+            f"the microbatch batch_size / grad_accum_steps = {micro} must divide over the "
+            f"{n}-way data mesh"
+        )
+    if (micro // n) % config.iw_samples != 0:
+        raise ValueError(
+            f"the local microbatch batch_size / grad_accum_steps / mesh size = {micro // n} "
+            f"must be a multiple of iw_samples = {config.iw_samples}: an importance group "
+            "cannot span two ranks"
+        )
 
 
 def _median(v: Tensor) -> float:
