@@ -24,10 +24,12 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
-   plain forward, at the Lorenz shape, ragged shapes and the bf16 tensor-core
-   tile edges (S = 1, 64, 65), ``real_len`` masks (one inside a tile at
-   head_dim 128), head_dim 32 and 128 and strided q/k/v; K6+K7 twice on the
-   Lorenz inputs, bitwise equal;
+   plain forward, at the Lorenz shape, ragged shapes, the edges of the bf16
+   tiles (S = 1, 64, 65, 127, 128, 129, 257: K5 and K6 run wgmma on 128-row
+   blocks, K7 mma.sync on 64-row blocks), ``real_len`` masks (inside a
+   128-row block, and inside a tile at head_dim 128), head_dim 32 and 128 and
+   strided q/k/v; K5's and K6's launch plans as the kernels report them
+   against ``flash_plan``; K6+K7 twice on the Lorenz inputs, bitwise equal;
 7. every kernel's time beside its plain version's (CUDA events) at the
    shapes of the main paths, its bound (the larger of its operations over the
    card's peak rate for their type and its bytes over the memory rate) and,
@@ -140,6 +142,11 @@ ELBO_RTOL = 1e-4  # the ELBO bar of tests/test_reference_parity.py
 BF16_FWD, BF16_BWD = 2e-2, 3e-2
 BF16_ELBO = 2e-2
 
+# K5-K7 at the Lorenz shape before K5 and K6 ran wgmma (ms; PERF.md, the
+# mma.sync kernels on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+# this run's times.
+MMA_SYNC_MS = {"K5": 0.883, "K6": 1.547, "K7": 1.074}
+
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores, fp32 outside them, and device memory.
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -180,7 +187,7 @@ def phase_build(torch) -> None:
     for lib, s in zip(LIBRARIES, seconds):
         log(f"[build] {lib.name} library ready in {s:.1f} s")
         for line in lib.report().read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 log(f"[ptxas] {line.strip()}")
     torch.cuda.synchronize()
 
@@ -536,18 +543,47 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     ((2, 4, 333, 32), "float32", 250, False),
     ((2, 4, 333, 128), "float32", None, False),
     ((2, 4, 333, 128), "bfloat16", 300, False),
-    # edges of the bf16 tensor-core tiles (64 output rows a block, 64- or
-    # 32-row streamed tiles): one row, one full tile, one row past it
+    # edges of the bf16 tiles: K5 and K6 own 128 rows a block (two 64-row
+    # warpgroups) and stream 128/64/32-row tiles, K7 owns 64 rows: one row,
+    # one 64-row tile, one row past it; one row short of a 128-row block, one
+    # block, one row past it, two blocks and a row
     ((2, 4, 1, 64), "bfloat16", None, False),
     ((2, 4, 64, 64), "bfloat16", None, False),
     ((2, 4, 65, 64), "bfloat16", None, False),
+    ((2, 4, 127, 64), "bfloat16", None, False),
+    ((2, 4, 128, 64), "bfloat16", None, False),
+    ((2, 4, 129, 64), "bfloat16", None, False),
+    ((2, 4, 257, 64), "bfloat16", None, True),
+    ((2, 4, 129, 128), "bfloat16", None, False),
     ((2, 4, 2001, 64), "bfloat16", 1500, False),
     ((2, 4, 333, 32), "bfloat16", None, False),
+    ((2, 4, 257, 32), "bfloat16", 200, True),
     ((2, 4, 200, 128), "bfloat16", None, True),
     ((2, 4, 333, 64), "bfloat16", 250, True),
+    # real_len splitting a 128-row block (300 = 2 * 128 + 44) at head_dim 64
+    ((2, 4, 700, 64), "bfloat16", 300, True),
     # real_len inside a 64-row tile (1000 = 15 * 64 + 40) at head_dim 128
     ((2, 4, 2001, 128), "bfloat16", 1000, False),
 ]
+
+
+def phase_flash_plan(torch) -> None:
+    """K5's and K6's bf16 launch plans as the kernels report them equal
+    ``flash_plan``, the Python mirror the CPU tests check."""
+    import ctypes
+
+    from viforsdes_tpu_torch.ops import flash_attention as fa
+    from viforsdes_tpu_torch.ops.kernel_build import ATTENTION, raise_on
+
+    lib = ATTENTION.get()
+    for kernel, fn in (("fwd", lib.flash_attn_fwd_plan), ("dkv", lib.flash_attn_bwd_plan)):
+        for d in (32, 64, 128):
+            out = (ctypes.c_longlong * 5)()
+            raise_on(fn(d, out), f"flash plan {kernel} D={d}")
+            got, want = fa.FlashPlan(*out), fa.flash_plan(kernel, d)
+            if got != want:
+                raise AssertionError(f"flash plan {kernel} D={d}: kernel {got}, flash_plan {want}")
+            log(f"[K5-K7] plan {kernel} D={d}: {got}")
 
 
 def phase_flash(torch) -> tuple[float, float, float]:
@@ -791,6 +827,11 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     t["flash_fwd_tflops"] = 2 * product / t["flash_fwd_ms"] / 1e9
     t["flash_bwd_tflops"] = 7 * product / t["flash_bwd_ms"] / 1e9
     log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: the FMA kernels): " + json.dumps(t))
+    k6k7, k6k7_before = t["flash_bwd_dkv_ms"] + t["flash_bwd_dq_ms"], MMA_SYNC_MS["K6"] + MMA_SYNC_MS["K7"]
+    log(f"[library] K5 {t['flash_fwd_ms']:.4f} ms (mma.sync {MMA_SYNC_MS['K5']}) against the library forward "
+        f"{t['library_fwd_ms']:.4f}: {t['flash_fwd_ms'] / t['library_fwd_ms']:.3f}x; K6 {t['flash_bwd_dkv_ms']:.4f} "
+        f"+ K7 {t['flash_bwd_dq_ms']:.4f} = {k6k7:.4f} ms (mma.sync {k6k7_before:.3f}) against the library "
+        f"backward {t['library_bwd_ms']:.4f}: {k6k7 / t['library_bwd_ms']:.3f}x")
     return t, bounds
 
 
@@ -1333,8 +1374,8 @@ KERNEL_NAMES = {
     "K2": r"sde_sampler::bptt_kernel",
     "K3": r"qk_prep::qk_prep_kernel<.*, false>",
     "K4": r"qk_prep::qk_prep_kernel<.*, true>",
-    "K5": r"flash::fwd_(mma_)?kernel",
-    "K6": r"flash::dkv_(mma_)?kernel",
+    "K5": r"flash::fwd_(wgmma_)?kernel",
+    "K6": r"flash::dkv_(wgmma_)?kernel",
     "K7": r"flash::dq_(mma_)?kernel",
 }
 
@@ -1448,12 +1489,15 @@ def phase_graph(torch, label: str, make, k: int, n_steps: int, interval: int,
     device_ms = sum(getattr(e, attr) for e in events) / 1e3 / k
     counts = {kern: sum(e.count for e in events if re.search(pattern, e.key))
               for kern, pattern in KERNEL_NAMES.items()}
+    kernel_ms = {kern: sum(getattr(e, attr) for e in events if re.search(pattern, e.key)) / 1e3 / k
+                 for kern, pattern in KERNEL_NAMES.items()}
     graph_ms = stats["graph"]["median_ms"]
     idle = max(0.0, 1 - device_ms / graph_ms)
     log(f"[graph] {label} profile of one replay ({k} steps, with the draws and input copies before it): "
         f"device kernel time {device_ms:.3f} ms/step in {sum(e.count for e in events)} launches; against "
         f"the unprofiled {graph_ms:.3f} ms/step: device idle share {idle:.3f}; kernels by name {json.dumps(counts)} "
         f"(expected {json.dumps(expected_counts)})")
+    log(f"[graph] {label} K1-K7 ms/step in that replay: " + json.dumps({n: round(v, 4) for n, v in kernel_ms.items()}))
     for e in sorted(events, key=lambda e: -getattr(e, attr))[:8]:
         log(f"[graph]   {getattr(e, attr) / k / 1e3:8.3f} ms/step  x{e.count:<4d} {e.key[:90]}")
     if counts != expected_counts:
@@ -1890,6 +1934,7 @@ def main() -> int:
     phase_build(torch)
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
+    phase_flash_plan(torch)
     errs["K5"], errs["K6"], errs["K7"] = phase_flash(torch)
     mark("build and kernel checks")
     times, bounds = phase_kernel_times(torch)
@@ -1939,7 +1984,8 @@ def main() -> int:
     ms_of["K5 fp32"] = att["flash_fwd_fp32_ms"]
     ms_of["K6 fp32"], ms_of["K7 fp32"] = att["flash_bwd_dkv_fp32_ms"], att["flash_bwd_dq_fp32_ms"]
     for k, bd in bounds.items():
-        log(f"[bounds] {k}: {ms_of[k]:.4f} ms against a bound of {bd['bound_ms']:.4f} ms "
+        earlier = f" (mma.sync: {MMA_SYNC_MS[k]} ms)" if k in MMA_SYNC_MS else ""
+        log(f"[bounds] {k}: {ms_of[k]:.4f} ms{earlier} against a bound of {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']}: {bd['flop'] / 1e9:.2f} GFLOP at the {bd['peak']} peak, "
             f"{bd['bytes'] / 1e6:.1f} MB), {bd['bound_ms'] / ms_of[k]:.4f} of the bound")
     kernels = [

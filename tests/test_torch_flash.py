@@ -270,6 +270,72 @@ def test_kernel_operand_keeps_aligned_views():
     assert copy is not odd and copy.is_contiguous() and torch.equal(copy, odd)
 
 
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 2001])
+def test_wgmma_plan_covers_every_row_and_fits(kernel, d, s):
+    """The bf16 K5/K6 launch plan: the grid's blocks cover every output row
+    and no block starts past S; the streamed tiles cover every row of the
+    other side; a block is two 64-row warpgroups and a producer warpgroup; a
+    streamed tile is whole 16-row depth steps and one TMA box (at most 256
+    rows); the ring's shared memory fits an H100 block's 232,448 bytes."""
+    plan = tfa.flash_plan(kernel, d)
+    blocks = -(-s // plan.rows)  # the kernels' grid: (blocks, H, B)
+    assert blocks * plan.rows >= s > (blocks - 1) * plan.rows
+    n_tiles = -(-s // plan.tile_rows)
+    assert n_tiles * plan.tile_rows >= s > (n_tiles - 1) * plan.tile_rows
+    assert plan.rows == 2 * 64 and plan.threads == 3 * 128
+    assert plan.tile_rows % 16 == 0 and plan.tile_rows <= 256 and plan.stages >= 2
+    assert plan.smem_bytes <= 232_448  # what an H100 block may opt in to
+    # the tiles the ring holds, in bf16, below the total
+    tiles = plan.stages * 2 * plan.tile_rows * d * 2
+    assert tiles < plan.smem_bytes
+
+
+def test_wgmma_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tfa.flash_plan("fwd", 48)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tfa.flash_plan("dq", 64)
+
+
+def test_tma_operand_keeps_readable_views_and_copies_the_rest():
+    """The Lorenz path's strided q/k/v (1536-byte row strides, 128-byte head
+    offsets) are read in place; views with a stride that is not a multiple of
+    16 bytes, a misaligned base or a zero stride are copied first."""
+    b, s, h, d = 2, 10, 4, 64
+    qkv = torch.zeros(b, s, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in torch.chunk(qkv, 3, dim=-1))
+    for t in (q, k, v):
+        assert tfa.tma_readable(t) and tfa._tma_operand(t) is t
+    odd = torch.zeros(b, s, h * d + 4, dtype=torch.bfloat16)[..., 4:].reshape(b, s, h * d)
+    odd = odd.unflatten(-1, (h, d)).transpose(1, 2)  # rows 2 * (h d + 4) bytes apart
+    shifted = torch.zeros(b * h * s * d + 1, dtype=torch.bfloat16)[1:].view(b, h, s, d)
+    expanded = torch.zeros(1, h, s, d, dtype=torch.bfloat16).expand(b, h, s, d)
+    for t in (odd, shifted, expanded):
+        assert not tfa.tma_readable(t)
+        copy = tfa._tma_operand(t)
+        assert copy is not t and tfa.tma_readable(copy) and torch.equal(copy, t)
+
+
+def test_unreadable_operand_is_refused_before_any_launch(monkeypatch):
+    """A view TMA cannot read even after a copy raises in the wrapper, before
+    the kernel library is built or anything is launched."""
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(tfa, "tma_readable", lambda t: False)
+    monkeypatch.setattr(tfa.ATTENTION, "get", no_library)
+    counters = (tfa.FORWARD_LAUNCHES, tfa.BACKWARD_DKV_LAUNCHES, tfa.BACKWARD_DQ_LAUNCHES)
+    before = [c.count for c in counters]
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA cannot read"):
+        tfa._forward_cuda(x, x, x, 8, 0.125)
+    with pytest.raises(ValueError, match="TMA cannot read"):
+        tfa._backward_cuda(x, x, x, x, x[..., 0].float(), x, 8, 0.125)
+    assert [c.count for c in counters] == before
+
+
 def test_library_cache_key_covers_only_its_own_sources(tmp_path, monkeypatch):
     """Editing an attention source leaves the sampler library's cached path
     alone, and the reverse; a shared header edit changes its users' paths."""
@@ -284,6 +350,7 @@ def test_library_cache_key_covers_only_its_own_sources(tmp_path, monkeypatch):
 
     assert "flash_attn.cuh" in kernel_build.dependencies(attention.sources)
     assert "attn_common.cuh" in kernel_build.dependencies(attention.sources)
+    assert "hopper.cuh" in kernel_build.dependencies(attention.sources)
     assert kernel_build.dependencies(sampler.sources) == [
         "sde_sampler.cuh", "sde_sampler_bwd.cu", "sde_sampler_fwd.cu"]
 

@@ -1,7 +1,8 @@
 // Shared definitions of the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): tile sizes, the mask, and the tile loaders of the fp32
-// FMA kernels (K5, and K6/K7 for fp32 inputs; the bf16 K6/K7 run on the
-// tensor cores, flash_attn_mma.cuh).
+// flash_attn_bwd.cu): the arguments, the mask and its tile shortcut, the
+// block shape and the accumulator store of the bf16 wgmma kernels (K5, K6;
+// hopper.cuh), and the tile loaders of the fp32 FMA kernels (K5-K7 for fp32
+// inputs; the bf16 K7 runs mma.sync, flash_attn_mma.cuh).
 //
 // Every FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
 // head) with 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
@@ -49,6 +50,45 @@ struct BwdArgs {
 // of its segment, and no key at or past S.
 __device__ __forceinline__ bool visible(int q_row, int k_row, int S, int real_len) {
   return k_row < S && ((q_row >= real_len) == (k_row >= real_len));
+}
+
+// True when every (query, key) pair of query rows [q0, q1) and key rows
+// [k0, k1) is visible: all rows below S and all on one side of real_len.
+__device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1, int S, int real_len) {
+  if (q1 > S || k1 > S) return false;
+  return max(q1, k1) <= real_len || min(q0, k0) >= real_len;
+}
+
+// Blocks of the bf16 wgmma kernels (K5, K6): two consumer warpgroups of 64
+// output rows each, then a producer warpgroup whose first warp issues the
+// TMA loads of a ring of kWgStages stages. The producer hands registers to
+// the consumers (setmaxnreg): 128 x 40 + 256 x 232 fit the SM's 65,536.
+constexpr int kWgConsumerWarps = 8;
+constexpr int kWgThreads = 32 * kWgConsumerWarps + 128;
+constexpr int kWgRows = 128;  // output rows of a block
+constexpr int kWgStages = 4;
+constexpr unsigned kProducerRegs = 40;
+constexpr unsigned kConsumerRegs = 232;
+
+// Store a warp's 16 rows of a warpgroup accumulator ([64, D], D / 2 floats
+// a thread; hopper.cuh) times row_scale as bf16 rows row0 + g and
+// row0 + g + 8 of the view; rows at or past S are skipped.
+template <int D>
+__device__ __forceinline__ void store_acc16(const MutView& out, int b, int h, int row0, int S,
+                                            const float (&acc)[D / 2], const float (&row_scale)[2],
+                                            int lane) {
+  const int g = lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= S) continue;
+    __nv_bfloat16* p = attn::row_ptr<__nv_bfloat16>(out, b, h, row) + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      attn::store2<__nv_bfloat16>(p + 8 * j, acc[4 * j + 2 * half] * row_scale[half],
+                                  acc[4 * j + 2 * half + 1] * row_scale[half]);
+    }
+  }
 }
 
 // Rows row0 .. row0+63 of a [B, H, S, D] view into dst[d * kLdt + r]

@@ -17,28 +17,39 @@
 // against 131 MB of q, k, v, do in and 98 MB of gradients out (0.07 ms at
 // 3.35 TB/s).
 //
-// Both passes give each block 64 output rows and loop over the other side's
+// Each pass gives a block its output rows and loops over the other side's
 // tiles, so each block owns its output rows outright: no atomics, and the
 // gradients are the same bit for bit from run to run.
 //
-// bf16 inputs (the main path) run on the tensor cores, mma.sync m16n8k16
-// with fp32 accumulators (flash_attn_mma.cuh). Four warps, each owning 16
-// output rows. Operand tiles stay bf16 in shared memory, rows padded against
-// bank conflicts, read with ldmatrix (.trans where an operand is taken
-// transposed). The streamed tiles (q, do, lse, di in K6; k, v in K7) arrive by
-// cp.async into two stages, so the next tile loads while this one computes.
-//   K6: per warp, S^T = K Q^T and dP^T = V dO^T over 16 kv rows; p^T and
-//       ds^T stay in the accumulator registers, are rounded to bf16 as they
-//       are packed into A fragments, and feed dV += p^T dO and dK += ds^T Q
-//       without touching shared memory. q and do are read twice from the one
-//       bf16 tile: plain as the B operand of S^T and dP^T, transposed as the
-//       B operand of dV and dK.
-//   K7: per warp, S = Q K^T and dP = dO V^T over 16 q rows, then
-//       dQ += bf16(ds) K with K read transposed.
-// Masks apply in fragment coordinates (keys past S, the ragged tail, the
-// real_len segments), skipped on tiles that lie wholly inside one segment.
-// K6 streams 32-row q tiles at head_dim 128 (64 below) so that dK, dV and the
-// two score tiles fit in registers.
+// K6 with bf16 inputs (the main path) runs wgmma fed by TMA (hopper.cuh). A
+// block owns 128 kv rows: two consumer warpgroups of 64 (one wgmma M tile
+// each) and a producer warpgroup that hands most of its registers to them
+// (setmaxnreg). k and v arrive once by TMA and stay in shared memory; q and
+// do tiles of kQ rows stream through a ring of kWgStages stages by TMA, with
+// lse (times log2(e)) and di copied beside them by the producer warp's
+// lanes, each stage behind a full and an empty mbarrier. Per q tile, each
+// consumer warpgroup
+//   - computes S^T = K Q^T and dP^T = V dO^T, both operands in shared memory
+//     (K-major);
+//   - forms P^T = exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T
+//     (dP^T - di) scale in the accumulator registers (row kv, column q),
+//     masked in fragment coordinates only on tiles that cross S or real_len;
+//   - adds dV += bf16(P^T) dO and dK += bf16(dS^T) Q with A from registers
+//     (rounded as it is packed) and dO, Q MN-major from the same shared tiles
+//     that fed the first two products.
+// Within a warpgroup the tiles overlap: tile j's S^T and dP^T are issued
+// together with tile j - 1's dV and dK products, and tile j's P^T and dS^T
+// are formed while those run; then the stage of tile j - 1 is released.
+// What sizes kQ is the registers that overlap keeps live: dK and dV (D
+// columns each), S^T and dP^T of tile j and the bf16 P^T and dS^T of tile
+// j - 1. At 64-row q tiles that passes what ptxas gives a consumer at head_dim
+// 64: it spills and serializes the products, and K6 runs slower than at 32
+// rows. So kQ is 32, and 16 at head_dim 128.
+//
+// K7 with bf16 inputs runs the tensor cores through mma.sync m16n8k16 with
+// fp32 accumulators (flash_attn_mma.cuh): four warps, each owning 16 q rows;
+// k and v tiles arrive by cp.async into two stages; S = Q K^T and dP = dO V^T,
+// then dQ += bf16(ds) K with K read transposed by ldmatrix.
 //
 // fp32 inputs keep the first design, fp32-exact: shared-memory tiles in fp32,
 // 4 x 4 register tiles of fp32 FMA, the ragged tail zero-filled on load and
@@ -48,6 +59,7 @@
 
 #include "flash_attn.cuh"
 #include "flash_attn_mma.cuh"
+#include "hopper.cuh"
 
 namespace flash {
 
@@ -189,19 +201,256 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 
 // ---------------------------------------------------------------- bf16 path
 
-// Blocks an SM must hold at once (the register cap of __launch_bounds__):
-// at head_dim <= 64, K6 capped at 170 registers (3 blocks) and K7 at 128 (4)
-// run faster for a few bytes of spill; at head_dim 128 the cap spills the
-// accumulators, so the compiler keeps its choice.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// K6's plan at head_dim D: kWgRows kv rows a block, kQ q rows a stage.
+// Shared memory: k and v of the block, the ring of (q tile, do tile), the
+// ring's lse and di, then the barriers, after up to 1024 bytes that align the
+// tiles (flash_plan in ops/flash_attention.py mirrors this).
 template <int D>
-struct DkvMma {
-  static constexpr int kLd = D + mma::kPad;
-  static constexpr int kQ = D == 128 ? 32 : 64;  // q rows per streamed tile
-  static constexpr int kMinBlocks = D == 128 ? 1 : 3;
-  static constexpr size_t kSmem =
-      sizeof(mma::bf16) * (2 * kMmaRows + 4 * kQ) * kLd + sizeof(float) * 4 * kQ;
+struct DkvPlan {
+  static constexpr int kQ = D == 128 ? 16 : 32;
+  static constexpr int kKvBytes = 2 * hopper::Tile<D>::template bytes<kWgRows>();
+  static constexpr int kStageBytes = 2 * hopper::Tile<D>::template bytes<kQ>();  // by TMA
+  static constexpr int kRowBytes = 2 * kQ * 4;                                    // lse, di
+  static constexpr int kBarriers = 1 + 2 * kWgStages;
+  static constexpr size_t kSmem = 1024 + kKvBytes + kWgStages * (kStageBytes + kRowBytes) + 8 * kBarriers;
 };
 
+struct DkvMaps {
+  CUtensorMap q, k, v, d_o;
+};
+
+// p^T = exp(s^T scale - lse) and ds^T = p^T (dp^T - di) scale of one tile,
+// in place of s and dp (warpgroup accumulators: rows kv from row0, columns q
+// from q0), with lse2 = lse log2(e) and di of the tile's q rows in shared
+// memory. A tile wholly inside one segment and below S (masked false) needs
+// no index arithmetic; on other tiles masked pairs get p = ds = 0.
+template <int NS>
+__device__ __forceinline__ void dkv_scores(float (&s)[NS], float (&dp)[NS], const float* lse2, const float* di,
+                                           bool masked, int row0, int q0, int S, int real_len, float scale,
+                                           int lane) {
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const float scale2 = scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int qc = (i >> 2) * 8 + c2 + (i & 1);
+    float pv = exp2f(fmaf(s[i], scale2, -lse2[qc]));
+    if (masked) {
+      const int kv = row0 + g + 8 * ((i >> 1) & 1);
+      pv = q0 + qc < S && visible(q0 + qc, kv, S, real_len) ? pv : 0.0f;
+    }
+    dp[i] = pv * (dp[i] - di[qc]) * scale;
+    s[i] = pv;
+  }
+}
+
+// s^T = k q^T and dp^T = v do^T of one tile: k and v the warpgroup's 64 rows
+// (K-major), q and do the tile's BQ rows (K-major, do after q in qo); s and
+// dp are not read (the first depth step overwrites them).
+template <int D, int BQ>
+__device__ __forceinline__ void dkv_scores_mma(float (&s)[BQ / 2], float (&dp)[BQ / 2], const hopper::bf16* k_wg,
+                                               const hopper::bf16* v_wg, const hopper::bf16* qo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hopper::mma_ss<BQ>(s, hopper::desc_k<D, kWgRows>(k_wg, 0, kk), hopper::desc_k<D, BQ>(qo, 0, kk), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hopper::mma_ss<BQ>(dp, hopper::desc_k<D, kWgRows>(v_wg, 0, kk), hopper::desc_k<D, BQ>(qo + BQ * D, 0, kk), kk);
+  }
+}
+
+// dv += bf16(p^T) do and dk += bf16(ds^T) q of one tile: A from registers,
+// do and q MN-major (do after q in qo).
+template <int D, int BQ>
+__device__ __forceinline__ void dkv_grad_mma(float (&dk)[D / 2], float (&dv)[D / 2], const uint32_t (&pa)[BQ / 16][4],
+                                             const uint32_t (&da)[BQ / 16][4], const hopper::bf16* qo) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) hopper::mma_rs<D>(dv, pa[kk], hopper::desc_mn<D, BQ>(qo + BQ * D, kk));
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) hopper::mma_rs<D>(dk, da[kk], hopper::desc_mn<D, BQ>(qo, kk));
+}
+
+// K6 on Hopper: dk and dv of 128 kv rows, 64 per consumer warpgroup.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) dkv_wgmma_kernel(const BwdArgs a,
+                                                                  const __grid_constant__ DkvMaps maps) {
+  using hopper::bf16;
+  using P = DkvPlan<D>;
+  constexpr int BQ = P::kQ, ST = kWgStages;
+  constexpr int NS = BQ / 2, NG = D / 2;  // accumulator floats a thread: s and dp, dk and dv
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* base = hopper::align1024(smem_wg);
+  bf16* k_s = reinterpret_cast<bf16*>(base);                                  // [kWgRows] rows of k
+  bf16* v_s = k_s + kWgRows * D;                                              // [kWgRows] rows of v
+  bf16* qo_s = reinterpret_cast<bf16*>(base + P::kKvBytes);                   // [ST] x (q tile, do tile)
+  float* lse_s = reinterpret_cast<float*>(base + P::kKvBytes + ST * P::kStageBytes);  // [ST][BQ], lse log2(e)
+  float* di_s = lse_s + ST * BQ;                                                      // [ST][BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(di_s + ST * BQ);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;        // [ST]: the stage's q, do, lse, di are in
+  uint64_t* empty = bars + 1 + ST;  // [ST]: every consumer warp is done with it
+
+  const int kv0 = blockIdx.x * kWgRows, h = blockIdx.y, b = blockIdx.z;
+  // the warp index broadcast from lane 0, uniform across the warp as the
+  // roles' warpgroup-wide setmaxnreg wants
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0), lane = threadIdx.x % 32;
+  const int S = a.S, n_tiles = (S + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(kv_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      hopper::bar_init(full + st, 32);  // the producer warp's lanes
+      hopper::bar_init(empty + st, kWgConsumerWarps);
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumerWarps) {  // the producer warpgroup: its first warp loads
+    hopper::regs_dec<kProducerRegs>();
+    if (warp == kWgConsumerWarps) {
+      const long long bh = static_cast<long long>(b) * a.H + h;
+      if (lane == 0) {
+        hopper::prefetch_map(&maps.q);
+        hopper::prefetch_map(&maps.d_o);
+        hopper::bar_arrive_expect_tx(kv_full, P::kKvBytes);
+        hopper::tma_rows<D, kWgRows>(k_s, &maps.k, kv_full, kv0, h, b);
+        hopper::tma_rows<D, kWgRows>(v_s, &maps.v, kv_full, kv0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST, q0 = j * BQ;
+        bf16* q_t = qo_s + st * 2 * BQ * D;
+        if (j >= ST) hopper::bar_wait(empty + st, (j / ST - 1) & 1);
+        for (int r = lane; r < BQ; r += 32) {  // rows past S: zeros, masked below
+          const bool in = q0 + r < S;
+          lse_s[st * BQ + r] = in ? a.lse[bh * S + q0 + r] * kLog2e : 0.0f;
+          di_s[st * BQ + r] = in ? a.di[bh * S + q0 + r] : 0.0f;
+        }
+        if (lane == 0) {
+          hopper::bar_arrive_expect_tx(full + st, P::kStageBytes);
+          hopper::tma_rows<D, BQ>(q_t, &maps.q, full + st, q0, h, b);
+          hopper::tma_rows<D, BQ>(q_t + BQ * D, &maps.d_o, full + st, q0, h, b);
+        } else {
+          hopper::bar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    // a consumer warpgroup: kv rows kw .. kw + 63, this warp's 16 from kw + wrow
+    hopper::regs_inc<kConsumerRegs>();
+    const int wg = warp / 4, kw = kv0 + 64 * wg, wrow = 16 * (warp % 4);
+
+    float dk[NG], dv[NG];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) dk[i] = dv[i] = 0.0f;
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // bf16(p^T), bf16(ds^T) of the tile whose dv, dk are next
+    hopper::bar_wait(kv_full, 0);
+    const bf16* k_wg = k_s + 64 * wg * hopper::Tile<D>::kAtom;  // this warpgroup's 64 rows of each block
+    const bf16* v_wg = v_s + 64 * wg * hopper::Tile<D>::kAtom;
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + st);
+    };
+    auto form = [&](float (&s)[NS], float (&dp)[NS], int j) {  // p^T, ds^T of tile j in place
+      const int st = j % ST, q0 = j * BQ;
+      dkv_scores(s, dp, lse_s + st * BQ, di_s + st * BQ, !all_visible(q0, q0 + BQ, kw, kw + 64, S, a.real_len),
+                 kw + wrow, q0, S, a.real_len, a.scale, lane);
+    };
+    auto pack = [&](const float (&s)[NS], const float (&dp)[NS]) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        hopper::a_from_acc(pa[kk], s + 8 * kk);
+        hopper::a_from_acc(da[kk], dp + 8 * kk);
+      }
+    };
+
+    // tile 0: its s^T, dp^T, p^T and ds^T alone
+    {
+      float s[NS], dp[NS];
+      hopper::bar_wait(full, 0);
+      hopper::wg_fence();
+      dkv_scores_mma<D, BQ>(s, dp, k_wg, v_wg, qo_s);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      form(s, dp, 0);
+      pack(s, dp);
+    }
+    // tile j's s^T and dp^T are issued with tile j - 1's dv and dk products,
+    // and its p^T and ds^T are formed while those are on the tensor cores
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, prev = (j - 1) % ST;
+      float s[NS], dp[NS];
+      hopper::bar_wait(full + st, (j / ST) & 1);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      hopper::wg_fence();
+      dkv_scores_mma<D, BQ>(s, dp, k_wg, v_wg, qo_s + st * 2 * BQ * D);
+      hopper::wg_commit();
+      dkv_grad_mma<D, BQ>(dk, dv, pa, da, qo_s + prev * 2 * BQ * D);
+      hopper::wg_commit();
+      hopper::wg_wait<1>();  // s^T and dp^T
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      form(s, dp, j);
+      hopper::wg_wait<0>();  // dv and dk of tile j - 1
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      release(prev);
+      pack(s, dp);
+    }
+    // the last tile's dv and dk
+    {
+      const int last = (n_tiles - 1) % ST;
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      hopper::wg_fence();
+      dkv_grad_mma<D, BQ>(dk, dv, pa, da, qo_s + last * 2 * BQ * D);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      release(last);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    store_acc16<D>(a.dk, b, h, kw + wrow, S, dk, one, lane);
+    store_acc16<D>(a.dv, b, h, kw + wrow, S, dv, one, lane);
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  using P = DkvPlan<D>;
+  DkvMaps maps;
+  cudaError_t err = hopper::bhsd_map(&maps.k, a.k.p, a.k.sb, a.k.sh, a.k.ss, a.B, a.H, a.S, D, kWgRows);
+  if (err == cudaSuccess) err = hopper::bhsd_map(&maps.v, a.v.p, a.v.sb, a.v.sh, a.v.ss, a.B, a.H, a.S, D, kWgRows);
+  if (err == cudaSuccess) err = hopper::bhsd_map(&maps.q, a.q.p, a.q.sb, a.q.sh, a.q.ss, a.B, a.H, a.S, D, P::kQ);
+  if (err == cudaSuccess) {
+    err = hopper::bhsd_map(&maps.d_o, a.d_o.p, a.d_o.sb, a.d_o.sh, a.d_o.ss, a.B, a.H, a.S, D, P::kQ);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = dkv_wgmma_kernel<D>;
+  err = attn::allow_smem(kernel, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + kWgRows - 1) / kWgRows, a.H, a.B);
+  kernel<<<grid, kWgThreads, P::kSmem, stream>>>(a, maps);
+  return cudaGetLastError();
+}
+
+// Blocks an SM must hold at once (the register cap of __launch_bounds__):
+// at head_dim <= 64, K7 capped at 128 registers (4 blocks) runs faster for a
+// few bytes of spill; at head_dim 128 the cap spills the accumulators, so the
+// compiler keeps its choice.
 template <int D>
 struct DqMma {
   static constexpr int kLd = D + mma::kPad;
@@ -209,123 +458,6 @@ struct DqMma {
   static constexpr int kMinBlocks = D == 128 ? 1 : 4;
   static constexpr size_t kSmem = sizeof(mma::bf16) * (2 * kMmaRows + 4 * kKv) * kLd;
 };
-
-// K6 on the tensor cores: dk and dv of 64 kv rows, 16 per warp.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, DkvMma<D>::kMinBlocks) dkv_mma_kernel(BwdArgs a) {
-  using mma::bf16;
-  constexpr int LD = DkvMma<D>::kLd, BQ = DkvMma<D>::kQ;
-  constexpr int NQ = BQ / 8, ND = D / 8;  // n-tiles over q (scores), over d (dk, dv)
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_mma);  // [64][LD]       fixed for the block
-  bf16* v_s = k_s + kMmaRows * LD;                 // [64][LD]
-  bf16* q_s = v_s + kMmaRows * LD;                 // [2][BQ][LD]    two stages
-  bf16* do_s = q_s + 2 * BQ * LD;                  // [2][BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // [2][BQ]
-  float* di_s = lse_s + 2 * BQ;                                  // [2][BQ]
-
-  const int kv0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int S = a.S, wrow = warp * 16;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  auto load_q_tile = [&](int stage, int q0) {
-    mma::load_rows_async<BQ, D, kMmaThreads>(q_s + stage * BQ * LD, a.q, b, h, q0, S);
-    mma::load_rows_async<BQ, D, kMmaThreads>(do_s + stage * BQ * LD, a.d_o, b, h, q0, S);
-    const int t = threadIdx.x, r = t % BQ;
-    if (t < 2 * BQ) {
-      const bool in = q0 + r < S;
-      const float* src = (t < BQ ? a.lse : a.di) + bh * S + (in ? q0 + r : 0);
-      mma::cp_async4((t < BQ ? lse_s : di_s) + stage * BQ + r, src, in);
-    }
-  };
-
-  mma::load_rows_async<kMmaRows, D, kMmaThreads>(k_s, a.k, b, h, kv0, S);
-  mma::load_rows_async<kMmaRows, D, kMmaThreads>(v_s, a.v, b, h, kv0, S);
-  load_q_tile(0, 0);
-  mma::cp_async_commit();
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
-  }
-
-  const int n_tiles = (S + BQ - 1) / BQ;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1, q0 = j * BQ;
-    mma::cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1's stage
-    if (j + 1 < n_tiles) load_q_tile(st ^ 1, q0 + BQ);
-    mma::cp_async_commit();
-    const bf16* qt = q_s + st * BQ * LD;
-    const bf16* ot = do_s + st * BQ * LD;
-    const float* lse_t = lse_s + st * BQ;
-    const float* di_t = di_s + st * BQ;
-
-    // s^T = k q^T and dp^T = v do^T: rows are this warp's kv rows, columns q
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      mma::ldsm_x4(ka, mma::frag_rows16<LD>(k_s, wrow, kk * 16, lane));
-      mma::ldsm_x4(va, mma::frag_rows16<LD>(v_s, wrow, kk * 16, lane));
-#pragma unroll
-      for (int n = 0; n < NQ; n += 2) {
-        uint32_t qb[4], ob[4];
-        mma::ldsm_x4(qb, mma::frag_cols16<LD>(qt, n * 8, kk * 16, lane));
-        mma::ldsm_x4(ob, mma::frag_cols16<LD>(ot, n * 8, kk * 16, lane));
-        mma::mma_16816(s[n], ka, qb[0], qb[1]);
-        mma::mma_16816(s[n + 1], ka, qb[2], qb[3]);
-        mma::mma_16816(dp[n], va, ob[0], ob[1]);
-        mma::mma_16816(dp[n + 1], va, ob[2], ob[3]);
-      }
-    }
-
-    // p^T into s, ds^T into dp, in fragment coordinates (row kv, column q)
-    const bool masked = !all_visible(q0, q0 + BQ, kv0, kv0 + kMmaRows, S, a.real_len);
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = n * 8 + c2 + (i & 1);
-        const int kv = kv0 + wrow + g + 8 * (i >> 1);
-        const bool keep = !masked || (q0 + qc < S && visible(q0 + qc, kv, S, a.real_len));
-        const float pv = keep ? __expf(fmaf(s[n][i], a.scale, -lse_t[qc])) : 0.0f;
-        dp[n][i] = pv * (dp[n][i] - di_t[qc]) * a.scale;
-        s[n][i] = pv;
-      }
-    }
-
-    // dv += bf16(p^T) do, dk += bf16(ds^T) q: A from registers, B transposed
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      mma::a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
-      mma::a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t ob[4], qb[4];
-        mma::ldsm_x4_t(ob, mma::frag_rows16<LD>(ot, kk * 16, n * 8, lane));
-        mma::ldsm_x4_t(qb, mma::frag_rows16<LD>(qt, kk * 16, n * 8, lane));
-        mma::mma_16816(dv[n], pa, ob[0], ob[1]);
-        mma::mma_16816(dv[n + 1], pa, ob[2], ob[3]);
-        mma::mma_16816(dk[n], da, qb[0], qb[1]);
-        mma::mma_16816(dk[n + 1], da, qb[2], qb[3]);
-      }
-    }
-  }
-
-  mma::store_rows16<ND>(a.dk, b, h, kv0 + wrow, S, dk, lane);
-  mma::store_rows16<ND>(a.dv, b, h, kv0 + wrow, S, dv, lane);
-}
 
 // K7 on the tensor cores: dq of 64 q rows, 16 per warp.
 template <int D>
@@ -438,24 +570,24 @@ __global__ void __launch_bounds__(kMmaThreads, DqMma<D>::kMinBlocks) dq_mma_kern
 }
 
 template <int D>
-cudaError_t launch_mma(const BwdArgs& a, int pass, cudaStream_t stream) {
+cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.H, a.B);
-  void (*kernel)(BwdArgs) = pass == 0 ? dkv_mma_kernel<D> : dq_mma_kernel<D>;
-  const size_t smem = pass == 0 ? DkvMma<D>::kSmem : DqMma<D>::kSmem;
-  cudaError_t err = attn::allow_smem(kernel, smem);
+  auto kernel = dq_mma_kernel<D>;
+  cudaError_t err = attn::allow_smem(kernel, DqMma<D>::kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kMmaThreads, smem, stream>>>(a);
+  kernel<<<grid, kMmaThreads, DqMma<D>::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- dispatch
 
 // Pass 0 launches K6 (dk, dv), pass 1 K7 (dq); the wrapper runs 0 then 1.
-// bf16 inputs take the tensor-core kernels, fp32 inputs the FMA kernels.
+// bf16 inputs take the wgmma K6 and the mma.sync K7, fp32 inputs the FMA
+// kernels.
 template <typename T, int D>
 cudaError_t launch_typed(const BwdArgs& a, int pass, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_mma<D>(a, pass, stream);
+    return pass == 0 ? launch_dkv_wgmma<D>(a, stream) : launch_dq_mma<D>(a, stream);
   } else {
     const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
     if (pass == 0) {
@@ -486,6 +618,13 @@ cudaError_t launch(const BwdArgs& a, int D, int pass, cudaStream_t stream) {
   }
 }
 
+template <int D>
+void dkv_plan(long long* out) {
+  using P = DkvPlan<D>;
+  const long long plan[5] = {kWgRows, P::kQ, kWgStages, kWgThreads, static_cast<long long>(P::kSmem)};
+  for (int i = 0; i < 5; ++i) out[i] = plan[i];
+}
+
 }  // namespace flash
 
 extern "C" int flash_attn_bwd(
@@ -508,4 +647,15 @@ extern "C" int flash_attn_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(a, D, pass, st)
                                   : launch<float>(a, D, pass, st));
+}
+
+// K6's bf16 plan at head_dim D: {kv rows a block, q rows a stage, stages,
+// threads, dynamic shared memory bytes}.
+extern "C" int flash_attn_bwd_plan(int D, long long* out) {
+  switch (D) {
+    case 32: flash::dkv_plan<32>(out); return 0;
+    case 64: flash::dkv_plan<64>(out); return 0;
+    case 128: flash::dkv_plan<128>(out); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

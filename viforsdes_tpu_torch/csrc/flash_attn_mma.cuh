@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): bf16 tiles in shared memory filled
-// by cp.async, ldmatrix reads of mma.sync operand fragments, the product
-// itself, and the block shape and mask shortcut the kernels share.
+// Tensor-core building blocks of K7, the bf16 dQ pass of the flash-attention
+// backward (flash_attn_bwd.cu, pass 1), in the instruction set Hopper keeps
+// from Ampere: bf16 tiles in shared memory filled by cp.async, ldmatrix reads
+// of mma.sync operand fragments, the product itself, and K7's block shape.
+// (K5 and K6 run wgmma fed by TMA: hopper.cuh.)
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, per lane,
 // with g = lane / 4 and c = 2 * (lane % 4) (each A/B register holds two bf16,
@@ -38,12 +39,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// 4 bytes global -> shared; zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -145,16 +140,9 @@ __device__ __forceinline__ void store_rows16(const attn::MutView& out, int b, in
 
 }  // namespace mma
 
-// Blocks of the tensor-core kernels: four warps, each owning 16 output rows.
+// K7's blocks: four warps, each owning 16 output rows.
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRows = 16 * kMmaWarps;  // output rows of a block
-
-// True when every (query, key) pair of query rows [q0, q1) and key rows
-// [k0, k1) is visible: all rows below S and all on one side of real_len.
-__device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1, int S, int real_len) {
-  if (q1 > S || k1 > S) return false;
-  return max(q1, k1) <= real_len || min(q0, k0) >= real_len;
-}
 
 }  // namespace flash

@@ -20,12 +20,14 @@ the JAX function's; their callers discard those rows.
 The wrappers launch the kernels (``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``) for CUDA tensors and take the plain versions only
 for CPU tensors; any other device raises. ``di = rowsum(o * do)`` is a plain
-reduction outside the kernels, as in the JAX package.
+reduction outside the kernels, as in the JAX package. With bf16 inputs K5 and
+K6 read q, k, v and do by TMA; ``flash_plan`` gives their launch plan.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -54,6 +56,67 @@ BACKWARD_DQ_LAUNCHES = LaunchCounter()   # K7
 def use_flash_attention(seq_len: int) -> bool:
     """Static dispatch: the flash kernels serve grids longer than 512 tokens."""
     return seq_len > FLASH_SEQ_THRESHOLD
+
+
+# ------------------------------------------------------------ launch plan
+
+# The bf16 wgmma kernels K5 and K6 (``FwdPlan``, ``DkvPlan`` and the block
+# constants of ``csrc/flash_attn.cuh``): a block owns WGMMA_ROWS output rows
+# (two consumer warpgroups of 64 and one producer warpgroup) and streams the
+# other side's rows through a ring of WGMMA_STAGES stages.
+WGMMA_ROWS = 128
+WGMMA_THREADS = 384
+WGMMA_STAGES = 4
+
+
+class FlashPlan(NamedTuple):
+    rows: int        # output rows of a block: q rows (K5), kv rows (K6)
+    tile_rows: int   # streamed rows a stage: kv rows (K5), q rows (K6)
+    stages: int
+    threads: int
+    smem_bytes: int  # dynamic shared memory, 1024 bytes of alignment included
+
+
+def flash_plan(kernel: str, head_dim: int) -> FlashPlan:
+    """The launch plan of K5 (``kernel="fwd"``) or K6 (``"dkv"``) with bf16
+    inputs at ``head_dim``; ``chip_smoke.py`` holds it equal to the kernels'
+    own (``flash_attn_fwd_plan``, ``flash_attn_bwd_plan``)."""
+    d = head_dim
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash attention: head_dim {d} has no kernel")
+    if kernel == "fwd":  # q fixed; k and v tiles streamed
+        tile = 64 if d == 128 else 128
+        fixed, stage = 2 * WGMMA_ROWS * d, 2 * (2 * tile * d)
+    elif kernel == "dkv":  # k and v fixed; q and do tiles (TMA), lse and di streamed
+        tile = 16 if d == 128 else 32
+        fixed, stage = 2 * (2 * WGMMA_ROWS * d), 2 * (2 * tile * d) + 2 * 4 * tile
+    else:
+        raise ValueError(f"flash_plan: unknown kernel {kernel!r}")
+    barriers = 8 * (1 + 2 * WGMMA_STAGES)
+    smem = 1024 + fixed + WGMMA_STAGES * stage + barriers
+    return FlashPlan(WGMMA_ROWS, tile, WGMMA_STAGES, WGMMA_THREADS, smem)
+
+
+def tma_readable(t: Tensor) -> bool:
+    """Whether TMA can read ``t`` as a ``[B, H, S, D]`` tensor map: unit
+    stride on D, a 16-byte aligned base, and outer byte strides that are
+    positive multiples of 16 below 2**40."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(0 < s * t.element_size() < 2**40 and s * t.element_size() % 16 == 0
+               for s in t.stride()[:-1])
+
+
+def _tma_operand(t: Tensor) -> Tensor:
+    """``t`` where the kernels can read it through its strides (TMA for K5
+    and K6, vector loads for K7), else a contiguous copy; refused before any
+    launch if even the copy is not readable."""
+    t = kernel_operand(t)
+    if not tma_readable(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+    if not tma_readable(t):
+        raise ValueError(f"flash attention: TMA cannot read a view with strides {t.stride()}")
+    return t
 
 
 # ------------------------------------------------------------- plain versions
@@ -126,7 +189,7 @@ def _forward_cuda(
     q: Tensor, k: Tensor, v: Tensor, real_len: int, sm_scale: float
 ) -> tuple[Tensor, Tensor]:
     _check(q, k, v)
-    q, k, v = (kernel_operand(t) for t in (q, k, v))
+    q, k, v = (_tma_operand(t) for t in (q, k, v))
     b, h, s, d = q.shape
     out = bshd_empty(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -149,7 +212,7 @@ def _backward_operands(
     _check(q, k, v)
     if do.shape != q.shape or do.device != q.device:
         raise ValueError("flash attention backward: do must match q in shape and device")
-    q, k, v, do = (kernel_operand(t) for t in (q, k, v, do.to(q.dtype)))
+    q, k, v, do = (_tma_operand(t) for t in (q, k, v, do.to(q.dtype)))
     b, h, s, d = q.shape
     lse = lse.float().contiguous()
     di = torch.sum(o.float() * do.float(), dim=-1).contiguous()  # [B, H, S]
@@ -253,7 +316,10 @@ __all__ = [
     "BACKWARD_DKV_LAUNCHES",
     "BACKWARD_DQ_LAUNCHES",
     "FlashAttention",
+    "FlashPlan",
+    "flash_plan",
     "flash_sdpa",
+    "tma_readable",
     "flash_forward",
     "flash_backward",
     "use_flash_attention",
