@@ -25,22 +25,28 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
    plain forward, at the Lorenz shape, ragged shapes, the edges of the bf16
-   tiles (S = 1, 64, 65, 127, 128, 129, 257: K5 and K6 run wgmma on 128-row
-   blocks, K7 mma.sync on 64-row blocks), ``real_len`` masks (inside a
-   128-row block, and inside a tile at head_dim 128), head_dim 32 and 128 and
-   strided q/k/v; K5's and K6's launch plans as the kernels report them
-   against ``flash_plan``; K6+K7 twice on the Lorenz inputs, bitwise equal;
+   tiles (S = 1, 64, 65, 127, 128, 129, 257: K5-K7 run wgmma on 128-row
+   blocks), ``real_len`` masks (inside a 128-row block, inside a tile at
+   head_dim 128, inside K7's 64-row kv tile at head_dim 32), head_dim 32 and
+   128 and strided q/k/v; K5's, K6's and K7's launch plans as the kernels
+   report them against ``flash_plan``; K6+K7 twice on the Lorenz inputs,
+   bitwise equal;
 7. every kernel's time beside its plain version's (CUDA events) at the
    shapes of the main paths, its bound (the larger of its operations over the
    card's peak rate for their type and its bytes over the memory rate) and,
    for K5-K7, the time of PyTorch's own flash attention
    (``scaled_dot_product_attention`` pinned to its flash backend) on the same
-   inputs as the yardstick; K5-K7 also with fp32 inputs (yardstick: the
-   memory-efficient backend); K1/K2 also in microseconds per serial step,
+   inputs as the yardstick, K5-K7 and the library timed in turns (each turn
+   runs them in order, then in reverse) before any other attention timing;
+   K5-K7 also with fp32 inputs (yardstick: the memory-efficient backend);
+   K1/K2 also in microseconds per serial step,
    both at 1, 2 and 4 rows per block and K1 on its streaming plan, and both
    beside their bound at the ``highdim_ou_dp.py`` shape (B=4096, T=500, D=32)
    and at the Lorenz shape with the widest head (H=256); K3/K4 as the median
-   of five windows that each start with a cold L2;
+   of five windows that each start with a cold L2, then over several such
+   sets, each with the SM clock that ``nvidia-smi`` reads after it (their
+   spread from set to set within one call); K7 beside its ``mma.sync`` time
+   and K6+K7 beside the library backward;
 8. the OU path: ``infer()`` at the ``bench.py`` configuration (OU 1-D, batch
    128, 100 path steps, SiT 256 x 4 heads x 8 deep, GRU 64 x 2), then
    ``posterior.summary(n_samples=256)``, with every kernel launch counted (it
@@ -87,9 +93,11 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    graph pool; K1/K2 and NCCL kernels counted in a profile of one replay;
    ``summary(500)``, ``diagnostics()`` and ``save`` -> ``load`` on the mesh
    arm. Then two ranks sharing the card over gloo (spawned, ``FileStore``) at
-   the OU bench configuration against the run without a mesh: ELBO within
-   ``ELBO_RTOL``, params within the backward bars, the ranks bitwise equal,
-   and ``steps_per_call=5`` refused on that mesh (semantics, not speed).
+   the OU bench configuration, with the batch split in two and with 3
+   importance groups a microbatch (2 on one rank, 1 on the other), each
+   against the run without a mesh: ELBO within ``ELBO_RTOL``, params within
+   the backward bars, the ranks bitwise equal, and ``steps_per_call=5``
+   refused on that mesh (semantics, not speed).
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -142,7 +150,7 @@ ELBO_RTOL = 1e-4  # the ELBO bar of tests/test_reference_parity.py
 BF16_FWD, BF16_BWD = 2e-2, 3e-2
 BF16_ELBO = 2e-2
 
-# K5-K7 at the Lorenz shape before K5 and K6 ran wgmma (ms; PERF.md, the
+# K5-K7 at the Lorenz shape before they ran wgmma (ms; PERF.md, the
 # mma.sync kernels on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
 # this run's times.
 MMA_SYNC_MS = {"K5": 0.883, "K6": 1.547, "K7": 1.074}
@@ -543,10 +551,10 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     ((2, 4, 333, 32), "float32", 250, False),
     ((2, 4, 333, 128), "float32", None, False),
     ((2, 4, 333, 128), "bfloat16", 300, False),
-    # edges of the bf16 tiles: K5 and K6 own 128 rows a block (two 64-row
-    # warpgroups) and stream 128/64/32-row tiles, K7 owns 64 rows: one row,
-    # one 64-row tile, one row past it; one row short of a 128-row block, one
-    # block, one row past it, two blocks and a row
+    # edges of the bf16 tiles: K5-K7 own 128 rows a block (two 64-row
+    # warpgroups) and stream 128/64/32-row tiles (K7: 64, 32 at head_dim
+    # 128): one row, one 64-row tile, one row past it; one row short of a
+    # 128-row block, one block, one row past it, two blocks and a row
     ((2, 4, 1, 64), "bfloat16", None, False),
     ((2, 4, 64, 64), "bfloat16", None, False),
     ((2, 4, 65, 64), "bfloat16", None, False),
@@ -564,11 +572,14 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     ((2, 4, 700, 64), "bfloat16", 300, True),
     # real_len inside a 64-row tile (1000 = 15 * 64 + 40) at head_dim 128
     ((2, 4, 2001, 128), "bfloat16", 1000, False),
+    # real_len inside K7's second 64-row kv tile (100 = 64 + 36) at head_dim
+    # 32, S one row past four such tiles
+    ((2, 4, 257, 32), "bfloat16", 100, False),
 ]
 
 
 def phase_flash_plan(torch) -> None:
-    """K5's and K6's bf16 launch plans as the kernels report them equal
+    """K5's, K6's and K7's bf16 launch plans as the kernels report them equal
     ``flash_plan``, the Python mirror the CPU tests check."""
     import ctypes
 
@@ -576,7 +587,9 @@ def phase_flash_plan(torch) -> None:
     from viforsdes_tpu_torch.ops.kernel_build import ATTENTION, raise_on
 
     lib = ATTENTION.get()
-    for kernel, fn in (("fwd", lib.flash_attn_fwd_plan), ("dkv", lib.flash_attn_bwd_plan)):
+    for kernel, fn in (("fwd", lib.flash_attn_fwd_plan),
+                       ("dkv", lambda d, out: lib.flash_attn_bwd_plan(d, 0, out)),
+                       ("dq", lambda d, out: lib.flash_attn_bwd_plan(d, 1, out))):
         for d in (32, 64, 128):
             out = (ctypes.c_longlong * 5)()
             raise_on(fn(d, out), f"flash plan {kernel} D={d}")
@@ -728,21 +741,21 @@ def wide_sampler_times(torch, label: str, B: int, T: int, D: int, H: int, L: int
     return {"times": times, "bounds": bounds}
 
 
-def library_attention(torch, q, k, v, do, backend: str = "FLASH_ATTENTION") -> dict:
+def library_arms(torch, q, k, v, do, tag: str = "", backend: str = "FLASH_ATTENTION") -> dict:
     """The yardstick for K5-K7 (the port never calls it): PyTorch's
     ``scaled_dot_product_attention`` pinned to one backend (flash for bf16;
     the memory-efficient one for fp32, which flash does not take) on the same
-    inputs, forward alone, and backward on one retained graph; with the
-    device kernels one forward and backward ran."""
+    inputs, as two arms for ``turns_ms``: the forward alone, and the backward
+    on one retained graph. Logs the device kernels of one forward and
+    backward."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.profiler import ProfilerActivity, profile
 
+    pin = getattr(SDPBackend, backend)
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    with sdpa_kernel(getattr(SDPBackend, backend)):
-        fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    with sdpa_kernel(pin):
         out = F.scaled_dot_product_attention(*ins)
-        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, ins, do, retain_graph=True), 20)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.autograd.grad(F.scaled_dot_product_attention(*ins), ins, do)
             torch.cuda.synchronize()
@@ -750,7 +763,64 @@ def library_attention(torch, q, k, v, do, backend: str = "FLASH_ATTENTION") -> d
     log(f"[library] scaled_dot_product_attention {q.dtype}, backend {backend} "
         f"(the only one enabled); device kernels of one forward + backward: "
         + "; ".join(n[:80] for n in names))
-    return {"library_fwd_ms": fwd_ms, "library_bwd_ms": bwd_ms}
+
+    def forward():
+        with sdpa_kernel(pin):
+            F.scaled_dot_product_attention(q, k, v)
+
+    return {f"library_fwd{tag}_ms": forward,
+            f"library_bwd{tag}_ms": lambda: torch.autograd.grad(out, ins, do, retain_graph=True)}
+
+
+FLASH_TURNS = 5  # turns of the attention arms in turns_ms
+
+
+def turns_ms(torch, arms: dict, n: int, turns: int) -> dict:
+    """ms per launch of each arm (name -> fn) over ``turns`` turns, each
+    running one window of ``n`` launches (CUDA events) of every arm in order,
+    then in reverse, after warming each as ``cuda_ms`` does: name -> the
+    windows' times."""
+    for fn in arms.values():
+        cuda_ms(torch, fn, 1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = {name: [] for name in arms}
+    for _ in range(turns):
+        for name in [*arms, *reversed(arms)]:
+            start.record()
+            for _ in range(n):
+                arms[name]()
+            end.record()
+            torch.cuda.synchronize()
+            out[name].append(start.elapsed_time(end) / n)
+    return out
+
+
+def turn_stats(windows: list[float]) -> str:
+    return f"median {statistics.median(windows):.4f} (min {min(windows):.4f}, max {max(windows):.4f})"
+
+
+QK_SETS = 6  # sets of COLD_WINDOWS cold windows of K3 and K4, for their spread
+
+
+def sm_clock_mhz() -> str:
+    """The SM clock ``nvidia-smi`` reads now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def qk_prep_spread(torch, q, cos, sin, do) -> dict:
+    """K3 and K4 over ``QK_SETS`` sets of ``cold_windows_ms`` windows in this
+    one call: each set's median, with the SM clock read right after it."""
+    from viforsdes_tpu_torch.ops import qk_prep as qp
+
+    out = {"fwd_ms": [], "bwd_ms": [], "sm_clock": []}
+    for _ in range(QK_SETS):
+        out["fwd_ms"].append(statistics.median(
+            cold_windows_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50)))
+        out["bwd_ms"].append(statistics.median(
+            cold_windows_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50)))
+        out["sm_clock"].append(sm_clock_mhz())
+    return out
 
 
 def phase_attention_times(torch) -> tuple[dict, dict]:
@@ -773,41 +843,52 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     o, lse = fa._forward_cuda(q, k, v, s, scale)
     operands, dq, dk, dv = fa._backward_operands(q, k, v, o, lse, do, s, scale)
     lse_di = operands[1][4:]
-    qk_fwd = cold_windows_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50)
-    qk_bwd = cold_windows_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50)
-    log(f"[K3/K4] {COLD_WINDOWS} windows of 50 launches, each after a {COLD_FLUSH_BYTES >> 20} MB "
-        f"write: K3 median {statistics.median(qk_fwd):.4f} ms (min {min(qk_fwd):.4f}, max {max(qk_fwd):.4f}); "
-        f"K4 median {statistics.median(qk_bwd):.4f} ms (min {min(qk_bwd):.4f}, max {max(qk_bwd):.4f})")
-    t = {
-        "qk_prep_fwd_ms": statistics.median(qk_fwd),
-        "qk_prep_fwd_windows_ms": qk_fwd,
-        "qk_prep_fwd_plain_ms": cuda_ms(torch, lambda: qp._forward_plain(q, cos, sin, 1e-6), 20),
-        "qk_prep_bwd_ms": statistics.median(qk_bwd),
-        "qk_prep_bwd_windows_ms": qk_bwd,
-        "qk_prep_bwd_plain_ms": cuda_ms(torch, lambda: qp._backward_plain(q, cos, sin, do, 1e-6), 20),
-        "flash_fwd_ms": cuda_ms(torch, lambda: fa._forward_cuda(q, k, v, s, scale), 20),
-        "flash_fwd_plain_ms": cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5),
-        "flash_bwd_dkv_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 0), 20),
-        "flash_bwd_dq_ms": cuda_ms(torch, lambda: fa._backward_launch(operands, 1), 20),
-        "flash_bwd_ms": cuda_ms(torch, lambda: fa._backward_cuda(q, k, v, o, lse, do, s, scale), 20),
-        "flash_bwd_plain_ms": cuda_ms(
-            torch, lambda: fa._backward_plain(q, k, v, o, lse, do, s, scale), 5),
-    }
-    t.update(library_attention(torch, q, k, v, do))
+    # K5-K7, the whole backward and the library's forward and backward, in
+    # turns inside this call, before the cold-L2 and nvidia-smi work of K3/K4
+    windows = turns_ms(torch, {
+        "flash_fwd_ms": lambda: fa._forward_cuda(q, k, v, s, scale),
+        "flash_bwd_dkv_ms": lambda: fa._backward_launch(operands, 0),
+        "flash_bwd_dq_ms": lambda: fa._backward_launch(operands, 1),
+        "flash_bwd_ms": lambda: fa._backward_cuda(q, k, v, o, lse, do, s, scale),
+        **library_arms(torch, q, k, v, do),
+    }, 20, FLASH_TURNS)
+    log(f"[turns] attention at [32, 4, 2001, 64] bf16, {2 * FLASH_TURNS} windows of 20 launches each in "
+        f"{FLASH_TURNS} turns (in order, then reversed), ms: "
+        + "; ".join(f"{name} {turn_stats(w)}" for name, w in windows.items()))
 
     # the same attention with fp32 inputs: the FMA kernels
     q32, k32, v32 = lorenz_heads(torch, shape, torch.float32, 80)
     do32 = do.float()
     o32, lse32 = fa._forward_cuda(q32, k32, v32, s, scale)
     operands32, dq32, dk32, dv32 = fa._backward_operands(q32, k32, v32, o32, lse32, do32, s, scale)
-    t["flash_fwd_fp32_ms"] = cuda_ms(torch, lambda: fa._forward_cuda(q32, k32, v32, s, scale), 3)
-    t["flash_bwd_dkv_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 0), 3)
-    t["flash_bwd_dq_fp32_ms"] = cuda_ms(torch, lambda: fa._backward_launch(operands32, 1), 3)
+    windows32 = turns_ms(torch, {
+        "flash_fwd_fp32_ms": lambda: fa._forward_cuda(q32, k32, v32, s, scale),
+        "flash_bwd_dkv_fp32_ms": lambda: fa._backward_launch(operands32, 0),
+        "flash_bwd_dq_fp32_ms": lambda: fa._backward_launch(operands32, 1),
+        **library_arms(torch, q32, k32, v32, do32, "_fp32", "EFFICIENT_ATTENTION"),
+    }, 3, 2)
+    t = {name: statistics.median(w) for name, w in {**windows, **windows32}.items()}
+    t["flash_fwd_plain_ms"] = cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5)
+    t["flash_bwd_plain_ms"] = cuda_ms(torch, lambda: fa._backward_plain(q, k, v, o, lse, do, s, scale), 5)
     t["flash_fwd_plain_fp32_ms"] = cuda_ms(torch, lambda: fa._forward_plain(q32, k32, v32, s, scale), 3)
     t["flash_bwd_plain_fp32_ms"] = cuda_ms(
         torch, lambda: fa._backward_plain(q32, k32, v32, o32, lse32, do32, s, scale), 3)
-    lib32 = library_attention(torch, q32, k32, v32, do32, "EFFICIENT_ATTENTION")
-    t["library_fwd_fp32_ms"], t["library_bwd_fp32_ms"] = lib32["library_fwd_ms"], lib32["library_bwd_ms"]
+
+    qk_fwd = cold_windows_ms(torch, lambda: qp._forward_cuda(q, cos, sin, 1e-6), 50)
+    qk_bwd = cold_windows_ms(torch, lambda: qp._backward_cuda(q, cos, sin, do, 1e-6), 50)
+    log(f"[K3/K4] {COLD_WINDOWS} windows of 50 launches, each after a {COLD_FLUSH_BYTES >> 20} MB "
+        f"write: K3 median {statistics.median(qk_fwd):.4f} ms (min {min(qk_fwd):.4f}, max {max(qk_fwd):.4f}); "
+        f"K4 median {statistics.median(qk_bwd):.4f} ms (min {min(qk_bwd):.4f}, max {max(qk_bwd):.4f})")
+    spread = qk_prep_spread(torch, q, cos, sin, do)
+    t.update({
+        "qk_prep_spread": spread,
+        "qk_prep_fwd_ms": statistics.median(qk_fwd),
+        "qk_prep_fwd_windows_ms": qk_fwd,
+        "qk_prep_fwd_plain_ms": cuda_ms(torch, lambda: qp._forward_plain(q, cos, sin, 1e-6), 20),
+        "qk_prep_bwd_ms": statistics.median(qk_bwd),
+        "qk_prep_bwd_windows_ms": qk_bwd,
+        "qk_prep_bwd_plain_ms": cuda_ms(torch, lambda: qp._backward_plain(q, cos, sin, do, 1e-6), 20),
+    })
 
     product = 2 * b * h * s * s * d  # one [S, S] x D product
     qk_out = qp._forward_cuda(q, cos, sin, 1e-6)
@@ -828,6 +909,18 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     t["flash_bwd_tflops"] = 7 * product / t["flash_bwd_ms"] / 1e9
     log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: the FMA kernels): " + json.dumps(t))
     k6k7, k6k7_before = t["flash_bwd_dkv_ms"] + t["flash_bwd_dq_ms"], MMA_SYNC_MS["K6"] + MMA_SYNC_MS["K7"]
+    for k in ("K3", "K4"):
+        key = "fwd" if k == "K3" else "bwd"
+        shares = [bounds[k]["bound_ms"] / m for m in spread[key + "_ms"]]
+        log(f"[K3/K4] {k} over {QK_SETS} sets of cold windows: medians {[round(m, 4) for m in spread[key + '_ms']]} "
+            f"ms, shares of the {bounds[k]['bound_ms']:.4f} ms bound {[round(x, 3) for x in shares]}; "
+            f"{sum(x < 0.5 for x in shares)} of {QK_SETS} sets under half the bound; SM clocks after each set "
+            f"{spread['sm_clock']}")
+    k7 = t["flash_bwd_dq_ms"]
+    log(f"[K7] median {k7:.4f} ms of the turns (mma.sync {MMA_SYNC_MS['K7']}: {MMA_SYNC_MS['K7'] / k7:.3f}x) "
+        f"against its bound {bounds['K7']['bound_ms']:.4f} ms: {bounds['K7']['bound_ms'] / k7:.4f} of the bound; K6 + K7 "
+        f"{t['flash_bwd_dkv_ms'] + k7:.4f} ms against the library backward {t['library_bwd_ms']:.4f}: "
+        f"{(t['flash_bwd_dkv_ms'] + k7) / t['library_bwd_ms']:.3f}x")
     log(f"[library] K5 {t['flash_fwd_ms']:.4f} ms (mma.sync {MMA_SYNC_MS['K5']}) against the library forward "
         f"{t['library_fwd_ms']:.4f}: {t['flash_fwd_ms'] / t['library_fwd_ms']:.3f}x; K6 {t['flash_bwd_dkv_ms']:.4f} "
         f"+ K7 {t['flash_bwd_dq_ms']:.4f} = {k6k7:.4f} ms (mma.sync {k6k7_before:.3f}) against the library "
@@ -885,11 +978,11 @@ def ou_problem(vt):
     )
 
 
-def make_trainer(vt, sampler: str, n_iterations: int, mesh=None, **training):
+def make_trainer(vt, sampler: str, n_iterations: int, mesh=None, batch_size: int = BATCH, **training):
     sde, obs, lik, prior = ou_problem(vt)
     return vt.VariationalInferenceTrainer(
         sde, obs, lik, prior, HORIZON,
-        vt.TrainingConfig(time_step=DT, batch_size=BATCH, n_iterations=n_iterations, **training),
+        vt.TrainingConfig(time_step=DT, batch_size=batch_size, n_iterations=n_iterations, **training),
         vt.EncoderConfig(**ENC),
         vt.HeadConfig(**HEAD, sampler=sampler),
         state_positive_dims=[],
@@ -1376,7 +1469,7 @@ KERNEL_NAMES = {
     "K4": r"qk_prep::qk_prep_kernel<.*, true>",
     "K5": r"flash::fwd_(wgmma_)?kernel",
     "K6": r"flash::dkv_(wgmma_)?kernel",
-    "K7": r"flash::dq_(mma_)?kernel",
+    "K7": r"flash::dq_(wgmma_)?kernel",
 }
 
 
@@ -1579,7 +1672,11 @@ DP_DIM, DP_BATCH, DP_ACCUM = 32, 4096, 4
 DP_STEPS, DP_K = 10, 5
 DP_ENC = dict(hidden_dim=256, num_heads=4, depth=8)
 DP_WINDOWS = 2        # timed windows of DP_K steps per arm
-DP_GLOO_STEPS = 5     # steps of the two-rank gloo run at the OU bench config
+DP_GLOO_STEPS = 5     # steps of the two-rank gloo runs at the OU bench config
+# the gloo runs' layouts: the bench batch split in two, and one whose
+# microbatch does not split evenly (3 importance groups of 16 paths a
+# microbatch over 2 ranks: 2 and 1)
+DP_GLOO_CASES = {"even": {}, "uneven": {"batch_size": 96, "grad_accum_steps": 2, "iw_samples": 16}}
 
 
 def dp_problem(torch, vt):
@@ -1835,8 +1932,8 @@ def phase_dp_mesh(torch, vt) -> dict:
 
 
 def dp_gloo_child(rank: int, store_path: str, out_dir: str) -> None:
-    """One of two ranks sharing the card over gloo: the OU bench config, the
-    global batch split in two, one step per call."""
+    """One of two ranks sharing the card over gloo: the OU bench config at
+    each of ``DP_GLOO_CASES``, one step per call."""
     import datetime
 
     import torch
@@ -1851,17 +1948,18 @@ def dp_gloo_child(rank: int, store_path: str, out_dir: str) -> None:
                             timeout=datetime.timedelta(seconds=300))
     try:
         mesh = vt.make_data_mesh()
-        trainer = make_trainer(vt, "auto", DP_GLOO_STEPS, mesh=mesh, steps_per_call=1)
-        history = trainer.train().evidence_lower_bound_history
+        out = {"backend": dist.get_backend()}
+        for case, training in DP_GLOO_CASES.items():
+            trainer = make_trainer(vt, "auto", DP_GLOO_STEPS, mesh=mesh, steps_per_call=1, **training)
+            out[case] = {"history": trainer.train().evidence_lower_bound_history, "groups": trainer._groups,
+                         "state": {k: v.cpu() for k, v in trainer_state(trainer).items()}}
         try:
             make_trainer(vt, "auto", DP_GLOO_STEPS, mesh=mesh, steps_per_call=5)
-            refused = ""
+            out["refused"] = ""
         except ValueError as err:
-            refused = str(err)
+            out["refused"] = str(err)
         torch.cuda.synchronize()
-        torch.save({"history": history, "refused": refused, "backend": dist.get_backend(),
-                    "state": {k: v.cpu() for k, v in trainer_state(trainer).items()}},
-                   os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -1869,38 +1967,45 @@ def dp_gloo_child(rank: int, store_path: str, out_dir: str) -> None:
 def phase_dp_gloo(torch, vt) -> dict:
     """Two ranks on one card over gloo (NCCL refuses two ranks on one
     device), spawned on a ``FileStore``: the OU bench config at batch 128
-    global, against the run without a mesh from the same seed. This checks
-    the semantics, not the speed."""
+    global, and a layout whose microbatch does not split evenly over the two
+    ranks, each against the run without a mesh from the same seed. This
+    checks the semantics, not the speed."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    ref = make_trainer(vt, "auto", DP_GLOO_STEPS, steps_per_call=1)
-    ref_history = ref.train().evidence_lower_bound_history
-    ref_state = trainer_state(ref)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         mp.start_processes(dp_gloo_child, args=(os.path.join(tmp, "store"), tmp), nprocs=2, start_method="spawn")
         wall = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["history"], ref_history))
-    worst = {key: max_err(ranks[0]["state"][key].cuda(), ref_state[key], BWD_RTOL, BWD_ATOL,
-                          f"[dp] gloo rank 0 {key} against the run without a mesh")
-             for key in ref_state}
-    same = {key: bool(torch.equal(a, ranks[1]["state"][key])) for key, a in ranks[0]["state"].items()}
-    same["history"] = ranks[0]["history"] == ranks[1]["history"]
-    log(f"[dp] gloo, 2 ranks sharing the card (semantics, not speed): backend {ranks[0]['backend']}, batch "
-        f"{BATCH} global ({BATCH // 2} a rank), {DP_GLOO_STEPS} steps in {wall:.2f} s with the spawn; ELBO "
-        f"history against the run without a mesh max rel {rel:.3e} (bar {ELBO_RTOL}); params max |err| "
-        f"{json.dumps(worst)}; rank 0 and rank 1 bitwise equal {json.dumps(same)}")
-    log(f"[dp] gloo: steps_per_call=5 refused: {ranks[0]['refused']}")
-    if len(ranks[0]["history"]) != DP_GLOO_STEPS or rel > ELBO_RTOL:
-        raise AssertionError("[dp] gloo: the two-rank ELBO history differs from the run without a mesh")
-    if not all(same.values()):
-        raise AssertionError("[dp] gloo: the two ranks differ")
+    out = {"wall_s": wall}
+    for case, training in DP_GLOO_CASES.items():
+        ref = make_trainer(vt, "auto", DP_GLOO_STEPS, steps_per_call=1, **training)
+        ref_history = ref.train().evidence_lower_bound_history
+        ref_state = trainer_state(ref)
+        got = [r[case] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["history"], ref_history))
+        worst = {key: max_err(got[0]["state"][key].cuda(), ref_state[key], BWD_RTOL, BWD_ATOL,
+                              f"[dp] gloo {case} rank 0 {key} against the run without a mesh")
+                 for key in ref_state}
+        same = {key: bool(torch.equal(a, got[1]["state"][key])) for key, a in got[0]["state"].items()}
+        same["history"] = got[0]["history"] == got[1]["history"]
+        batch = training.get("batch_size", BATCH)
+        log(f"[dp] gloo {case}, 2 ranks sharing the card (semantics, not speed): backend {ranks[0]['backend']}, "
+            f"batch {batch} global, training {json.dumps(training)}, importance groups of each microbatch by rank "
+            f"{[g['groups'] for g in got]}; {DP_GLOO_STEPS} steps; ELBO history against the run without a mesh "
+            f"max rel {rel:.3e} (bar {ELBO_RTOL}); params max |err| {json.dumps(worst)}; rank 0 and rank 1 "
+            f"bitwise equal {json.dumps(same)}")
+        if len(got[0]["history"]) != DP_GLOO_STEPS or rel > ELBO_RTOL:
+            raise AssertionError(f"[dp] gloo {case}: the two-rank ELBO history differs from the run without a mesh")
+        if not all(same.values()):
+            raise AssertionError(f"[dp] gloo {case}: the two ranks differ")
+        out[case] = {"elbo_rel": rel, "worst": worst}
+    log(f"[dp] gloo: both cases in {wall:.2f} s with the spawn; steps_per_call=5 refused: {ranks[0]['refused']}")
     if "gloo" not in ranks[0]["refused"] or "gloo" not in ranks[1]["refused"]:
         raise AssertionError("[dp] gloo: steps_per_call=5 was not refused by name")
-    return {"elbo_rel": rel, "worst": worst, "wall_s": wall}
+    return out
 
 
 def phase_dp(torch, vt, smi: str) -> dict:
@@ -1911,8 +2016,8 @@ def phase_dp(torch, vt, smi: str) -> dict:
     log(f"[dp] {smi}: d={DP_DIM} batch {DP_BATCH} ({DP_ACCUM} microbatches), graphs of {DP_K} steps: "
         f"mesh {m['median_ms']:.2f} ms/step, no mesh {n['median_ms']:.2f}; peak {m['peak_gib']:.3f} / "
         f"{n['peak_gib']:.3f} GiB, pool {m['pool_gib']} / {n['pool_gib']} GiB; device {p['device_ms']:.2f} "
-        f"ms/step, K1+K2 {p['k1k2_share']:.3f} of it; mesh == no mesh bitwise; gloo 2 ranks within bars, "
-        f"ranks bitwise equal; {time.perf_counter() - t0:.1f} s")
+        f"ms/step, K1+K2 {p['k1k2_share']:.3f} of it; mesh == no mesh bitwise; gloo 2 ranks, even and uneven, "
+        f"within bars, ranks bitwise equal; {time.perf_counter() - t0:.1f} s")
     return {"mesh": mesh, "gloo": gloo}
 
 

@@ -261,6 +261,15 @@ def test_other_devices_raise():
         tfa._check(torch.zeros(1, 2, 8, 48), torch.zeros(1, 2, 8, 48), torch.zeros(1, 2, 8, 48))
 
 
+@pytest.mark.parametrize("sm_scale", [0.0, -0.125, float("nan")])
+def test_kernels_refuse_a_scale_that_is_not_positive(sm_scale):
+    """K5 takes its row max on unscaled scores and K7 folds log2(scale) into
+    its exponent, so the CUDA path refuses a scale that is not positive before
+    it builds or launches anything."""
+    with pytest.raises(ValueError, match="sm_scale must be positive"):
+        tfa._check_scale(sm_scale)
+
+
 def test_kernel_operand_keeps_aligned_views():
     qkv = torch.zeros(2, 10, 3 * 4 * 32, dtype=torch.bfloat16)
     q = torch.chunk(qkv, 3, dim=-1)[1].reshape(2, 10, 4, 32).transpose(1, 2)
@@ -270,11 +279,11 @@ def test_kernel_operand_keeps_aligned_views():
     assert copy is not odd and copy.is_contiguous() and torch.equal(copy, odd)
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("s", [1, 127, 128, 129, 2001])
 def test_wgmma_plan_covers_every_row_and_fits(kernel, d, s):
-    """The bf16 K5/K6 launch plan: the grid's blocks cover every output row
+    """The bf16 K5/K6/K7 launch plan: the grid's blocks cover every output row
     and no block starts past S; the streamed tiles cover every row of the
     other side; a block is two 64-row warpgroups and a producer warpgroup; a
     streamed tile is whole 16-row depth steps and one TMA box (at most 256
@@ -296,7 +305,7 @@ def test_wgmma_plan_refuses_other_head_dims():
     with pytest.raises(ValueError, match="head_dim 48"):
         tfa.flash_plan("fwd", 48)
     with pytest.raises(ValueError, match="unknown kernel"):
-        tfa.flash_plan("dq", 64)
+        tfa.flash_plan("bwd", 64)
 
 
 def test_tma_operand_keeps_readable_views_and_copies_the_rest():

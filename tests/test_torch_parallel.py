@@ -18,6 +18,13 @@ What is held:
   ``mesh=None``;
 - a 2-rank ``_step_math`` on the draws of the JAX trainer on a 2-device mesh
   against that trainer, by the bars of ``test_step_math_matches_jax``;
+- the layouts whose microbatch does not split evenly over the mesh, which
+  the JAX mesh trains too (``UNEVEN``: importance groups over more ranks
+  than there are groups, so some ranks hold none; a microbatch of 6 over 4
+  ranks; 3 groups over 2 ranks): against the mesh-less run by the same bars,
+  ranks bitwise equal, one step per call and chunks of 3 bitwise equal, no
+  model run on a rank without groups, and the first against the JAX trainer
+  on a 4-device mesh;
 - the mesh utils, the errors, ``infer()`` with a mesh, and checkpoints (rank
   0 alone writes; a 2-rank resume equals the unbroken 2-rank run bitwise).
 """
@@ -64,6 +71,13 @@ SPEC = {
 LADDER = {"iw_samples": 2, "grad_accum_steps": 2, "theta_full_covariance": True,
           "obs_variance_final": 0.01, "obs_variance_anneal_steps": 2, "theta_warmup_steps": 1}
 CASES = {"plain": {}, "ladder5": LADDER}
+# name -> (ranks, training): microbatches that do not split evenly over the
+# mesh, as the JAX mesh trains them
+UNEVEN = {
+    "iw_groups_on_4": (4, {"batch_size": 8, "iw_samples": 4}),       # 2 groups: ranks 2, 3 hold none
+    "micro_6_on_4": (4, {"batch_size": 12, "grad_accum_steps": 2}),  # 6 groups a microbatch: 2, 2, 1, 1
+    "groups_3_on_2": (2, {"batch_size": 12, "iw_samples": 2, "grad_accum_steps": 2}),  # 2, 1
+}
 TIMEOUT_S = 120
 
 
@@ -115,7 +129,7 @@ def _child(rank, world, store_path, out_dir, jobs):
     try:
         for name, args in jobs:
             try:
-                result = {"ok": True, **globals()[name](rank, *args)}
+                result = {"ok": True, **globals()[name.split(":")[0]](rank, *args)}
             except Exception:  # noqa: BLE001 - reported to the test that reads this job
                 result = {"ok": False, "error": traceback.format_exc()}
             torch.save(result, os.path.join(out_dir, f"{name}.{rank}.pt"))
@@ -124,8 +138,9 @@ def _child(rank, world, store_path, out_dir, jobs):
 
 
 def _spawn(tmp_path, world: int, jobs: list) -> dict:
-    """Run ``jobs`` ((function name, args) pairs) on ``world`` spawned ranks;
-    returns {name: [result of rank 0, rank 1, ...]}."""
+    """Run ``jobs`` ((name, args) pairs; a name is a job function's, with
+    ``:label`` after it where one function runs more than once) on ``world``
+    spawned ranks; returns {name: [result of rank 0, rank 1, ...]}."""
     out_dir = tmp_path / f"out{world}"
     out_dir.mkdir()
     mp.start_processes(_child, args=(world, str(tmp_path / f"store{world}"), str(out_dir), jobs),
@@ -154,8 +169,9 @@ def job_mesh_utils(rank):
     for key, call in (("too_many", lambda: make_data_mesh(100, device_type="cpu")),
                       ("not_divisible", lambda: local_batch_size(10, full)),
                       ("batch_divide", lambda: _trainer(full, batch_size=18)),
-                      ("micro_divide", lambda: _trainer(full, batch_size=16, grad_accum_steps=8)),
-                      ("iw_per_rank", lambda: _trainer(full, batch_size=16, iw_samples=8)),
+                      # a microbatch of 2 and 2 groups of 8 over 4 ranks train, as in JAX
+                      ("micro_divide", lambda: _trainer(full, batch_size=16, grad_accum_steps=8).train()),
+                      ("iw_per_rank", lambda: _trainer(full, batch_size=16, iw_samples=8).train()),
                       ("outside", lambda: _trainer(sub))):
         try:
             call()
@@ -177,6 +193,24 @@ def job_train_plain(rank):
 
 def job_train_ladder5(rank):
     return _train_case("ladder5")
+
+
+def job_train_uneven(rank, case):
+    """One of ``UNEVEN`` one step per call and in chunks of 3 (the chunk
+    path's all-reduces), counting the ELBO evaluations of this rank."""
+    out, calls = {}, []
+    for spc in (1, 3):
+        trainer = _trainer(make_data_mesh(device_type="cpu"), **UNEVEN[case][1], steps_per_call=spc)
+        saved = trainer._elbo_from_params
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return saved(*args, **kwargs)
+
+        trainer._elbo_from_params = counted
+        trainer.train()
+        out[f"spc{spc}"] = _state(trainer)
+    return {**out, "groups": torch.tensor(trainer._groups), "elbo_calls": len(calls)}
 
 
 def job_infer(rank):
@@ -237,7 +271,7 @@ def job_jax_draws(rank, spec, npz_path):
     the JAX trainer's initial weights."""
     data = np.load(npz_path)
     trainer = _trainer(make_data_mesh(device_type="cpu"), spec=spec)
-    n = dist.get_world_size()
+    (lo, hi), iw = trainer._groups, trainer.config.iw_samples
     with torch.no_grad():
         for g in GROUPS:
             trainer.flat_params[g].copy_(torch.from_numpy(data[f"init/{g}"]))
@@ -245,8 +279,7 @@ def job_jax_draws(rank, spec, npz_path):
     metrics = []
     for step in range(int(data["n_steps"])):
         eps, noise = torch.from_numpy(data[f"eps/{step}"]), torch.from_numpy(data[f"noise/{step}"])
-        k, m = eps.shape[0] // n, noise.shape[1] // n
-        draws = [(eps[rank * k:(rank + 1) * k], noise[:, rank * m:(rank + 1) * m].contiguous())]
+        draws = [(eps[lo:hi], noise[:, lo * iw:hi * iw].contiguous())]
         *_, t_m = trainer._step_math(trainer.flat_params, trainer.opt_state, trainer.flat_ema, draws)
         metrics.append(t_m)
     last = metrics[-1]
@@ -271,39 +304,61 @@ def world1():
         dist.destroy_process_group()
 
 
-@pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    """Every 2-rank job in one spawn. The JAX trainer on a 2-device mesh of
-    conftest's virtual CPU devices runs 3 steps here first (beside the
-    mesh-less port trainer, for the tiny-gradient masks); its draws and
-    initial weights go to the children in an ``.npz``."""
+def _jax_reference(tmp, world: int, **training) -> tuple[dict, tuple]:
+    """The JAX trainer on a ``world``-device mesh of conftest's virtual CPU
+    devices runs 3 steps (beside the mesh-less port trainer, for the
+    tiny-gradient masks); its draws and initial weights go to the children
+    in an ``.npz``. Returns the reference and ``job_jax_draws``'s args."""
     import jax
 
     from viforsdes_tpu.parallel.mesh import make_data_mesh as jax_data_mesh
     from test_torch_elbo import BATCH, DT, ENC, HEAD, HORIZON, OBS_TIMES, OBS_VALUES, jax_draws, make_pair
     from test_torch_train import _run_steps
 
-    tmp = tmp_path_factory.mktemp("dp")
     n_steps = 3
-    jt, tt = make_pair(mesh=jax_data_mesh(2))
+    jt, tt = make_pair(mesh=jax_data_mesh(world), **training)
     arrays = {"n_steps": np.asarray(n_steps)}
     for g in GROUPS:
         arrays[f"init/{g}"] = tt.flat_params[g].numpy().copy()
     for step in range(n_steps):
-        eps, noise = jax_draws(jax.random.fold_in(jt._train_key, step), BATCH, 1, tt.n_steps)
+        eps, noise = jax_draws(jax.random.fold_in(jt._train_key, step), BATCH, tt.config.iw_samples, tt.n_steps)
         arrays[f"eps/{step}"], arrays[f"noise/{step}"] = eps.numpy(), noise.numpy()
     np.savez(tmp / "jax_draws.npz", **arrays)
     spec = {"obs": {"times": OBS_TIMES, "values": OBS_VALUES}, "horizon": HORIZON, "enc": ENC, "head": HEAD,
             "training": {"time_step": DT, "batch_size": BATCH, "n_iterations": n_steps,
-                         "compute_dtype": "float32"}}
+                         "compute_dtype": "float32", **training}}
+    j_m, _, small = _run_steps(jt, tt, n_steps)
+    return ({"trainer": jt, "port": tt, "metrics": j_m, "small": small, "n_steps": n_steps},
+            (spec, str(tmp / "jax_draws.npz")))
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Every 2-rank job in one spawn, and the JAX trainer on a 2-device mesh."""
+    tmp = tmp_path_factory.mktemp("dp")
+    jax_ref, jax_args = _jax_reference(tmp, 2)
     (tmp / "ckpt").mkdir()
     results = _spawn(tmp, 2, [
         ("job_train_plain", ()), ("job_train_ladder5", ()), ("job_infer", ()),
-        ("job_checkpoint", (str(tmp / "ckpt"),)), ("job_jax_draws", (spec, str(tmp / "jax_draws.npz"))),
+        ("job_checkpoint", (str(tmp / "ckpt"),)), ("job_jax_draws", jax_args), *_uneven_jobs(2),
     ])
-    j_m, _, small = _run_steps(jt, tt, n_steps)
-    results["jax"] = {"trainer": jt, "port": tt, "metrics": j_m, "small": small, "n_steps": n_steps}
+    results["jax"] = jax_ref
     return results
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """Every 4-rank job in one spawn, and the JAX trainer on a 4-device mesh
+    at the first ``UNEVEN`` layout (2 importance groups of 4 over 4 ranks)."""
+    tmp = tmp_path_factory.mktemp("dp4")
+    jax_ref, jax_args = _jax_reference(tmp, 4, iw_samples=UNEVEN["iw_groups_on_4"][1]["iw_samples"])
+    results = _spawn(tmp, 4, [("job_mesh_utils", ()), ("job_jax_draws", jax_args), *_uneven_jobs(4)])
+    results["jax"] = jax_ref
+    return results
+
+
+def _uneven_jobs(world: int) -> list:
+    return [(f"job_train_uneven:{case}", (case,)) for case, (w, _) in UNEVEN.items() if w == world]
 
 
 def _tree(trainer, state: dict, prefix: str) -> dict:
@@ -350,43 +405,75 @@ def test_world_of_one_equals_no_mesh_bitwise(world1, case):
         _assert_same(_state(with_mesh), _state(without), f"{case} {training}")
 
 
-def test_mesh_utils_and_errors_on_four_ranks(tmp_path):
-    out, *others = _ok(_spawn(tmp_path, 4, [("job_mesh_utils", ())])["job_mesh_utils"])
+def test_mesh_utils_and_errors_on_four_ranks(four_ranks):
+    out, *others = _ok(four_ranks["job_mesh_utils"])
     assert out["full_size"] == 4 and out["sub_size"] == 2 and out["local_batch"] == 4
     assert out["too_many"] == "requested 100 devices but only 4 available"
     assert out["not_divisible"] == "batch_size 10 must be divisible by mesh size 4"
     assert out["batch_divide"] == "batch_size 18 must divide over the 4-way data mesh"
-    assert "must divide over the 4-way data mesh" in out["micro_divide"]
-    assert "multiple of iw_samples = 8" in out["iw_per_rank"]
+    # a microbatch that does not divide over the mesh, and importance groups
+    # that do not, train (the JAX mesh trains both)
+    assert out["micro_divide"] == "" and out["iw_per_rank"] == ""
     for rank, result in enumerate([out, *others]):
         # ranks 0 and 1 are in the subset mesh of 2; a trainer elsewhere raises
         assert ("not in the data mesh" in result["outside"]) == (rank >= 2), result["outside"]
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_two_ranks_match_the_run_without_mesh(two_ranks, case):
+@pytest.mark.parametrize("world,groups", [(1, 1), (1, 7), (2, 3), (4, 2), (4, 6), (4, 9), (3, 16)])
+def test_rank_groups_split_each_microbatch(world, groups):
+    """Every importance group of a microbatch on exactly one rank, in order,
+    the ranks' counts at most one apart, the larger ones first."""
+    config = tvt.TrainingConfig(time_step=0.25, batch_size=2 * groups * 3, iw_samples=3, grad_accum_steps=2)
+    spans = [trainer_mod.rank_groups(config, r, world) for r in range(world)]
+    assert spans[0][0] == 0 and spans[-1][1] == groups
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    sizes = [hi - lo for lo, hi in spans]
+    assert sizes == sorted(sizes, reverse=True) and sizes[0] - sizes[-1] <= 1
+
+
+def _assert_matches_run_without_mesh(state: dict, training: dict) -> None:
+    """A mesh run's state against the mesh-less run from the same seed: the
+    ELBO history at rtol 1e-5, params and EMA by ``_assert_params_close``."""
     from test_torch_train import _assert_params_close, _lr_of, _tiny_grads
 
-    rank0, rank1 = _ok(two_ranks[f"job_train_{case}"])
-    _assert_same(rank0, rank1, "rank 0 against rank 1")
-    ref = _trainer(None, **CASES[case])
+    ref = _trainer(None, **training)
     small, history = {}, []
     for step in range(ref.config.n_iterations):
         for path, tiny in _tiny_grads(ref, ref.draws(step), step).items():
             small[path] = small.get(path, False) | tiny
         history.append(float(ref.train_step(step).elbo))
-    np.testing.assert_allclose(rank0["history"].numpy(), history, rtol=1e-5)
+    np.testing.assert_allclose(state["history"].numpy(), history, rtol=1e-5)
     n, lr_of = ref.config.n_iterations, _lr_of(ref)
-    _assert_params_close(_tree(ref, rank0, "params"), ref.params, small, lr_of, n)
-    _assert_params_close(_tree(ref, rank0, "ema"), ref.ema_params, small, lr_of, n)
+    _assert_params_close(_tree(ref, state, "params"), ref.params, small, lr_of, n)
+    _assert_params_close(_tree(ref, state, "ema"), ref.ema_params, small, lr_of, n)
 
 
-def test_two_ranks_match_the_jax_mesh(two_ranks):
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_uneven_layouts_match_the_run_without_mesh(two_ranks, four_ranks, case):
+    world, training = UNEVEN[case]
+    ranks = _ok((two_ranks if world == 2 else four_ranks)[f"job_train_uneven:{case}"])
+    config = tvt.TrainingConfig(**{**SPEC["training"], **training})
+    for rank, result in enumerate(ranks):
+        assert tuple(result["groups"].tolist()) == trainer_mod.rank_groups(config, rank, world)
+        _assert_same(result["spc3"], result["spc1"], f"rank {rank}: chunks of 3 against one step a call")
+        _assert_same(result["spc1"], ranks[0]["spc1"], f"rank {rank} against rank 0")
+        # a rank without importance groups runs no model; the others one ELBO
+        # a microbatch and step, in both runs
+        lo, hi = result["groups"].tolist()
+        want = 0 if lo == hi else 2 * config.grad_accum_steps * config.n_iterations
+        assert result["elbo_calls"] == want, (rank, result["elbo_calls"])
+    if case == "iw_groups_on_4":
+        assert [r["groups"].tolist() for r in ranks] == [[0, 1], [1, 2], [2, 2], [2, 2]]
+    _assert_matches_run_without_mesh(ranks[0]["spc1"], training)
+
+
+def _assert_matches_jax_mesh(results: dict) -> None:
     from test_torch_train import _assert_params_close, _lr_of
 
-    rank0, rank1 = _ok(two_ranks["job_jax_draws"])
-    _assert_same(rank0, rank1, "rank 0 against rank 1")
-    ref = two_ranks["jax"]
+    ranks = _ok(results["job_jax_draws"])
+    for rank, result in enumerate(ranks[1:], 1):
+        _assert_same(result, ranks[0], f"rank {rank} against rank 0")
+    rank0, ref = ranks[0], results["jax"]
     jt, tt, j_m = ref["trainer"], ref["port"], ref["metrics"]
     lr_of, n = _lr_of(tt), ref["n_steps"]
     _assert_params_close(_tree(tt, rank0, "params"), jt.params, ref["small"], lr_of, n)
@@ -397,6 +484,23 @@ def test_two_ranks_match_the_jax_mesh(two_ranks):
         np.testing.assert_allclose(value, float(getattr(j_m, name)), rtol=1e-4, err_msg=name)
     np.testing.assert_allclose(rank0["param_means"].numpy(), np.asarray(j_m.param_means), rtol=1e-4)
     assert int(rank0["notfinite"]) == int(j_m.notfinite_count) == 0
+
+
+def test_uneven_layout_matches_the_jax_mesh(four_ranks):
+    """2 importance groups of 4 over 4 ranks (two hold none) against the JAX
+    trainer on a 4-device mesh, from its draws and initial weights."""
+    _assert_matches_jax_mesh(four_ranks)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_ranks_match_the_run_without_mesh(two_ranks, case):
+    rank0, rank1 = _ok(two_ranks[f"job_train_{case}"])
+    _assert_same(rank0, rank1, "rank 0 against rank 1")
+    _assert_matches_run_without_mesh(rank0, CASES[case])
+
+
+def test_two_ranks_match_the_jax_mesh(two_ranks):
+    _assert_matches_jax_mesh(two_ranks)
 
 
 def test_infer_with_a_mesh_on_two_ranks(two_ranks):

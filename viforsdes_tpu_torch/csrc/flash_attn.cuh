@@ -1,8 +1,8 @@
 // Shared definitions of the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the arguments, the mask and its tile shortcut, the
-// block shape and the accumulator store of the bf16 wgmma kernels (K5, K6;
+// block shape and the accumulator store of the bf16 wgmma kernels (K5-K7;
 // hopper.cuh), and the tile loaders of the fp32 FMA kernels (K5-K7 for fp32
-// inputs; the bf16 K7 runs mma.sync, flash_attn_mma.cuh).
+// inputs).
 //
 // Every FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
 // head) with 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
@@ -59,7 +59,7 @@ __device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1, int 
   return max(q1, k1) <= real_len || min(q0, k0) >= real_len;
 }
 
-// Blocks of the bf16 wgmma kernels (K5, K6): two consumer warpgroups of 64
+// Blocks of the bf16 wgmma kernels (K5-K7): two consumer warpgroups of 64
 // output rows each, then a producer warpgroup whose first warp issues the
 // TMA loads of a ring of kWgStages stages. The producer hands registers to
 // the consumers (setmaxnreg): 128 x 40 + 256 x 232 fit the SM's 65,536.

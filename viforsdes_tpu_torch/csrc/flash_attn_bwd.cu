@@ -46,10 +46,26 @@
 // 64: it spills and serializes the products, and K6 runs slower than at 32
 // rows. So kQ is 32, and 16 at head_dim 128.
 //
-// K7 with bf16 inputs runs the tensor cores through mma.sync m16n8k16 with
-// fp32 accumulators (flash_attn_mma.cuh): four warps, each owning 16 q rows;
-// k and v tiles arrive by cp.async into two stages; S = Q K^T and dP = dO V^T,
-// then dQ += bf16(ds) K with K read transposed by ldmatrix.
+// K7 with bf16 inputs runs the same way, sides swapped. A block owns 128 q
+// rows, two consumer warpgroups of 64 and a producer warpgroup; q and do
+// arrive once by TMA and stay in shared memory, and each consumer thread
+// keeps lse (times log2(e), less log2(scale)) and di of its two rows in
+// registers for the whole block. k and v tiles of kKv rows stream through a
+// ring of kWgStages stages by TMA, each behind a full and an empty mbarrier.
+// Per kv tile, each consumer warpgroup
+//   - computes S = Q K^T and dP = dO V^T, both operands in shared memory
+//     (K-major), as two commit groups;
+//   - forms P scale = exp2(S scale log2(e) - lse log2(e) + log2(scale)) as
+//     soon as S is in, while dP is on the tensor cores, then dS = P scale
+//     (dP - di), in the accumulator registers (row q, column kv), masked in
+//     fragment coordinates only on tiles that cross S or real_len (the zero
+//     rows TMA fills past S give P = exp2(-lse log2(e)), not 0);
+//   - adds dQ += bf16(dS) K with A from registers (rounded as it is packed)
+//     and K MN-major from the same shared tile that fed S.
+// Tile j's S and dP are issued together with tile j - 1's dQ product, and
+// tile j's P and dS are formed while those run; then the stage of tile j - 1
+// is released. The live registers are dQ (D / 2 floats a thread), S and dP
+// (kKv / 2 each) and the packed dS of tile j - 1 (kKv / 4).
 //
 // fp32 inputs keep the first design, fp32-exact: shared-memory tiles in fp32,
 // 4 x 4 register tiles of fp32 FMA, the ragged tail zero-filled on load and
@@ -58,7 +74,6 @@
 #include <type_traits>
 
 #include "flash_attn.cuh"
-#include "flash_attn_mma.cuh"
 #include "hopper.cuh"
 
 namespace flash {
@@ -447,147 +462,259 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Blocks an SM must hold at once (the register cap of __launch_bounds__):
-// at head_dim <= 64, K7 capped at 128 registers (4 blocks) runs faster for a
-// few bytes of spill; at head_dim 128 the cap spills the accumulators, so the
-// compiler keeps its choice.
+// K7's plan at head_dim D: kWgRows q rows a block, kKv kv rows a stage.
+// kKv is 64 at head_dim 32 and 64: it ran faster than 32 and 128 (at 128, S
+// and dP take 64 floats a thread each, and ptxas spills and serializes the
+// products). Head_dim 128 takes 32: at 64 its dQ of 64 floats beside S and
+// dP spills.
+// Shared memory: q and do of the block, the ring of (k tile, v tile), then
+// the barriers, after up to 1024 bytes that align the tiles (flash_plan in
+// ops/flash_attention.py mirrors this).
 template <int D>
-struct DqMma {
-  static constexpr int kLd = D + mma::kPad;
-  static constexpr int kKv = 64;  // kv rows per streamed tile
-  static constexpr int kMinBlocks = D == 128 ? 1 : 4;
-  static constexpr size_t kSmem = sizeof(mma::bf16) * (2 * kMmaRows + 4 * kKv) * kLd;
+struct DqPlan {
+  static constexpr int kKv = D == 128 ? 32 : 64;
+  static constexpr int kQoBytes = 2 * hopper::Tile<D>::template bytes<kWgRows>();  // q, do
+  static constexpr int kStageBytes = 2 * hopper::Tile<D>::template bytes<kKv>();   // k, v
+  static constexpr int kBarriers = 1 + 2 * kWgStages;
+  static constexpr size_t kSmem = 1024 + kQoBytes + kWgStages * kStageBytes + 8 * kBarriers;
 };
 
-// K7 on the tensor cores: dq of 64 q rows, 16 per warp.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, DqMma<D>::kMinBlocks) dq_mma_kernel(BwdArgs a) {
-  using mma::bf16;
-  constexpr int LD = DqMma<D>::kLd, BK = DqMma<D>::kKv;
-  constexpr int NK = BK / 8, ND = D / 8;  // n-tiles over kv (scores), over d (dq)
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [64][LD]       fixed for the block
-  bf16* do_s = q_s + kMmaRows * LD;                // [64][LD]
-  bf16* k_s = do_s + kMmaRows * LD;                // [2][BK][LD]    two stages
-  bf16* v_s = k_s + 2 * BK * LD;                   // [2][BK][LD]
+struct DqMaps {
+  CUtensorMap q, k, v, d_o;
+};
 
-  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// p scale = exp2(s scale log2(e) - lse2) of one tile in place of s
+// (warpgroup accumulators: rows q from row0, columns kv from kv0), with lse2
+// = lse log2(e) - log2(scale) of this thread's two rows: the scale rides in
+// the exponent. A tile wholly inside one segment and below S (masked false)
+// needs no index arithmetic; on other tiles masked pairs get 0.
+template <int NS>
+__device__ __forceinline__ void dq_probs(float (&s)[NS], const float (&lse2)[2], bool masked, int row0, int kv0,
+                                         int S, int real_len, float scale2, int lane) {
   const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int S = a.S, wrow = warp * 16;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  auto load_kv_tile = [&](int stage, int kv0) {
-    mma::load_rows_async<BK, D, kMmaThreads>(k_s + stage * BK * LD, a.k, b, h, kv0, S);
-    mma::load_rows_async<BK, D, kMmaThreads>(v_s + stage * BK * LD, a.v, b, h, kv0, S);
-  };
-
-  mma::load_rows_async<kMmaRows, D, kMmaThreads>(q_s, a.q, b, h, q0, S);
-  mma::load_rows_async<kMmaRows, D, kMmaThreads>(do_s, a.d_o, b, h, q0, S);
-  load_kv_tile(0, 0);
-  mma::cp_async_commit();
-
-  // lse and di of this lane's two rows (g and g + 8 of the warp's 16)
-  float lse[2], di[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wrow + g + 8 * half;
-    lse[half] = row < S ? a.lse[bh * S + row] : 0.0f;
-    di[half] = row < S ? a.di[bh * S + row] : 0.0f;
-  }
-
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
-  }
-
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1, kv0 = j * BK;
-    mma::cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1's stage
-    if (j + 1 < n_tiles) load_kv_tile(st ^ 1, kv0 + BK);
-    mma::cp_async_commit();
-    const bf16* kt = k_s + st * BK * LD;
-    const bf16* vt = v_s + st * BK * LD;
-
-    // s = q k^T and dp = do v^T: rows are this warp's q rows, columns kv
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      mma::ldsm_x4(qa, mma::frag_rows16<LD>(q_s, wrow, kk * 16, lane));
-      mma::ldsm_x4(oa, mma::frag_rows16<LD>(do_s, wrow, kk * 16, lane));
-#pragma unroll
-      for (int n = 0; n < NK; n += 2) {
-        uint32_t kb[4], vb[4];
-        mma::ldsm_x4(kb, mma::frag_cols16<LD>(kt, n * 8, kk * 16, lane));
-        mma::ldsm_x4(vb, mma::frag_cols16<LD>(vt, n * 8, kk * 16, lane));
-        mma::mma_16816(s[n], qa, kb[0], kb[1]);
-        mma::mma_16816(s[n + 1], qa, kb[2], kb[3]);
-        mma::mma_16816(dp[n], oa, vb[0], vb[1]);
-        mma::mma_16816(dp[n + 1], oa, vb[2], vb[3]);
-      }
-    }
-
-    // ds into s, in fragment coordinates (row q, column kv)
-    const bool masked = !all_visible(q0, q0 + kMmaRows, kv0, kv0 + BK, S, a.real_len);
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + wrow + g + 8 * (i >> 1);
-        const int kv = kv0 + n * 8 + c2 + (i & 1);
-        const bool keep = !masked || (row < S && visible(row, kv, S, a.real_len));
-        const float pv = keep ? __expf(fmaf(s[n][i], a.scale, -lse[i >> 1])) : 0.0f;
-        s[n][i] = pv * (dp[n][i] - di[i >> 1]) * a.scale;
-      }
-    }
-
-    // dq += bf16(ds) k: A from registers, k read transposed
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      mma::a_from_c(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t kb[4];
-        mma::ldsm_x4_t(kb, mma::frag_rows16<LD>(kt, kk * 16, n * 8, lane));
-        mma::mma_16816(dq[n], da, kb[0], kb[1]);
-        mma::mma_16816(dq[n + 1], da, kb[2], kb[3]);
-      }
+  for (int i = 0; i < NS; ++i) {
+    const int half = (i >> 1) & 1;
+    const float ps = exp2f(fmaf(s[i], scale2, -lse2[half]));
+    if (masked) {
+      const int row = row0 + g + 8 * half, kv = kv0 + (i >> 2) * 8 + c2 + (i & 1);
+      s[i] = row < S && visible(row, kv, S, real_len) ? ps : 0.0f;
+    } else {
+      s[i] = ps;
     }
   }
+}
 
-  mma::store_rows16<ND>(a.dq, b, h, q0 + wrow, S, dq, lane);
+// ds = p scale (dp - di) in place of p scale.
+template <int NS>
+__device__ __forceinline__ void dq_ds(float (&s)[NS], const float (&dp)[NS], const float (&di)[2]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] *= dp[i] - di[(i >> 1) & 1];
+}
+
+// s = q k^T, then dp = do v^T of one tile, each its own commit group: q and
+// do the warpgroup's 64 rows (K-major), k and v the tile's BK rows
+// (K-major, v after k in kv); s and dp are not read (the first depth step
+// overwrites them).
+template <int D, int BK>
+__device__ __forceinline__ void dq_scores_mma(float (&s)[BK / 2], float (&dp)[BK / 2], const hopper::bf16* q_wg,
+                                              const hopper::bf16* do_wg, const hopper::bf16* kv) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hopper::mma_ss<BK>(s, hopper::desc_k<D, kWgRows>(q_wg, 0, kk), hopper::desc_k<D, BK>(kv, 0, kk), kk);
+  }
+  hopper::wg_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hopper::mma_ss<BK>(dp, hopper::desc_k<D, kWgRows>(do_wg, 0, kk), hopper::desc_k<D, BK>(kv + BK * D, 0, kk), kk);
+  }
+  hopper::wg_commit();
+}
+
+// dq += bf16(ds) k of one tile: A from registers, k MN-major.
+template <int D, int BK>
+__device__ __forceinline__ void dq_grad_mma(float (&dq)[D / 2], const uint32_t (&da)[BK / 16][4],
+                                            const hopper::bf16* k_t) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) hopper::mma_rs<D>(dq, da[kk], hopper::desc_mn<D, BK>(k_t, kk));
+}
+
+// K7 on Hopper: dq of 128 q rows, 64 per consumer warpgroup.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) dq_wgmma_kernel(const BwdArgs a,
+                                                                 const __grid_constant__ DqMaps maps) {
+  using hopper::bf16;
+  using P = DqPlan<D>;
+  constexpr int BK = P::kKv, ST = kWgStages;
+  constexpr int NS = BK / 2, NG = D / 2;  // accumulator floats a thread: s and dp, dq
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* base = hopper::align1024(smem_wg);
+  bf16* q_s = reinterpret_cast<bf16*>(base);                   // [kWgRows] rows of q
+  bf16* do_s = q_s + kWgRows * D;                              // [kWgRows] rows of do
+  bf16* kv_s = reinterpret_cast<bf16*>(base + P::kQoBytes);    // [ST] x (k tile, v tile)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + P::kQoBytes + ST * P::kStageBytes);
+  uint64_t* qo_full = bars;
+  uint64_t* full = bars + 1;        // [ST]: the stage's k and v have arrived
+  uint64_t* empty = bars + 1 + ST;  // [ST]: every consumer warp is done with it
+
+  const int q0 = blockIdx.x * kWgRows, h = blockIdx.y, b = blockIdx.z;
+  // the warp index broadcast from lane 0, uniform across the warp as the
+  // roles' warpgroup-wide setmaxnreg wants
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0), lane = threadIdx.x % 32;
+  const int S = a.S, n_tiles = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(qo_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      hopper::bar_init(full + st, 1);
+      hopper::bar_init(empty + st, kWgConsumerWarps);
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumerWarps) {  // the producer warpgroup: one thread issues every load
+    hopper::regs_dec<kProducerRegs>();
+    if (warp == kWgConsumerWarps && lane == 0) {
+      hopper::prefetch_map(&maps.k);
+      hopper::prefetch_map(&maps.v);
+      hopper::bar_arrive_expect_tx(qo_full, P::kQoBytes);
+      hopper::tma_rows<D, kWgRows>(q_s, &maps.q, qo_full, q0, h, b);
+      hopper::tma_rows<D, kWgRows>(do_s, &maps.d_o, qo_full, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        bf16* k_t = kv_s + st * 2 * BK * D;
+        if (j >= ST) hopper::bar_wait(empty + st, (j / ST - 1) & 1);
+        hopper::bar_arrive_expect_tx(full + st, P::kStageBytes);
+        hopper::tma_rows<D, BK>(k_t, &maps.k, full + st, j * BK, h, b);
+        hopper::tma_rows<D, BK>(k_t + BK * D, &maps.v, full + st, j * BK, h, b);
+      }
+    }
+  } else {
+    // a consumer warpgroup: q rows qw .. qw + 63, this warp's 16 from qw + wrow
+    hopper::regs_inc<kConsumerRegs>();
+    const int wg = warp / 4, qw = q0 + 64 * wg, wrow = 16 * (warp % 4);
+    const float scale2 = a.scale * kLog2e;
+
+    // lse log2(e) - log2(scale) and di of this thread's rows (g and g + 8 of
+    // the warp's 16), fixed for the block; rows past S read zeros, masked
+    // below
+    float lse2[2], di[2];
+    {
+      const long long bh = static_cast<long long>(b) * a.H + h;
+      const float log2_scale = log2f(a.scale);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = qw + wrow + lane / 4 + 8 * half;
+        lse2[half] = row < S ? fmaf(a.lse[bh * S + row], kLog2e, -log2_scale) : 0.0f;
+        di[half] = row < S ? a.di[bh * S + row] : 0.0f;
+      }
+    }
+    float dq[NG];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) dq[i] = 0.0f;
+    uint32_t da[BK / 16][4];  // bf16(ds) of the tile whose dq product is next
+    hopper::bar_wait(qo_full, 0);
+    const bf16* q_wg = q_s + 64 * wg * hopper::Tile<D>::kAtom;  // this warpgroup's 64 rows of each block
+    const bf16* do_wg = do_s + 64 * wg * hopper::Tile<D>::kAtom;
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + st);
+    };
+    auto probs = [&](float (&s)[NS], int j) {  // p scale of tile j in place of s
+      const int kv0 = j * BK;
+      dq_probs(s, lse2, !all_visible(qw, qw + 64, kv0, kv0 + BK, S, a.real_len), qw + wrow, kv0, S, a.real_len,
+               scale2, lane);
+    };
+    auto pack = [&](const float (&s)[NS]) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) hopper::a_from_acc(da[kk], s + 8 * kk);
+    };
+
+    // tile 0: its s, dp and ds alone, p while dp is on the tensor cores
+    {
+      float s[NS], dp[NS];
+      hopper::bar_wait(full, 0);
+      hopper::wg_fence();
+      dq_scores_mma<D, BK>(s, dp, q_wg, do_wg, kv_s);
+      hopper::wg_wait<1>();  // s
+      hopper::fence_regs(s);
+      probs(s, 0);
+      hopper::wg_wait<0>();  // dp
+      hopper::fence_regs(dp);
+      dq_ds(s, dp, di);
+      pack(s);
+    }
+    // tile j's s and dp are issued with tile j - 1's dq product; its p is
+    // formed while dp and that product are on the tensor cores, its ds while
+    // the product is
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, prev = (j - 1) % ST;
+      float s[NS], dp[NS];
+      hopper::bar_wait(full + st, (j / ST) & 1);
+      hopper::fence_regs(dq);
+      hopper::fence_regs(da);
+      hopper::wg_fence();
+      dq_scores_mma<D, BK>(s, dp, q_wg, do_wg, kv_s + st * 2 * BK * D);
+      dq_grad_mma<D, BK>(dq, da, kv_s + prev * 2 * BK * D);
+      hopper::wg_commit();
+      hopper::wg_wait<2>();  // s
+      hopper::fence_regs(s);
+      probs(s, j);
+      hopper::wg_wait<1>();  // dp
+      hopper::fence_regs(dp);
+      dq_ds(s, dp, di);
+      hopper::wg_wait<0>();  // dq of tile j - 1
+      hopper::fence_regs(dq);
+      hopper::fence_regs(da);
+      release(prev);
+      pack(s);
+    }
+    // the last tile's dq product
+    {
+      const int last = (n_tiles - 1) % ST;
+      hopper::fence_regs(dq);
+      hopper::fence_regs(da);
+      hopper::wg_fence();
+      dq_grad_mma<D, BK>(dq, da, kv_s + last * 2 * BK * D);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(dq);
+      release(last);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    store_acc16<D>(a.dq, b, h, qw + wrow, S, dq, one, lane);
+  }
 }
 
 template <int D>
-cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.S + kMmaRows - 1) / kMmaRows, a.H, a.B);
-  auto kernel = dq_mma_kernel<D>;
-  cudaError_t err = attn::allow_smem(kernel, DqMma<D>::kSmem);
+cudaError_t launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  using P = DqPlan<D>;
+  DqMaps maps;
+  cudaError_t err = hopper::bhsd_map(&maps.q, a.q.p, a.q.sb, a.q.sh, a.q.ss, a.B, a.H, a.S, D, kWgRows);
+  if (err == cudaSuccess) {
+    err = hopper::bhsd_map(&maps.d_o, a.d_o.p, a.d_o.sb, a.d_o.sh, a.d_o.ss, a.B, a.H, a.S, D, kWgRows);
+  }
+  if (err == cudaSuccess) err = hopper::bhsd_map(&maps.k, a.k.p, a.k.sb, a.k.sh, a.k.ss, a.B, a.H, a.S, D, P::kKv);
+  if (err == cudaSuccess) err = hopper::bhsd_map(&maps.v, a.v.p, a.v.sb, a.v.sh, a.v.ss, a.B, a.H, a.S, D, P::kKv);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kMmaThreads, DqMma<D>::kSmem, stream>>>(a);
+  auto kernel = dq_wgmma_kernel<D>;
+  err = attn::allow_smem(kernel, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + kWgRows - 1) / kWgRows, a.H, a.B);
+  kernel<<<grid, kWgThreads, P::kSmem, stream>>>(a, maps);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- dispatch
 
 // Pass 0 launches K6 (dk, dv), pass 1 K7 (dq); the wrapper runs 0 then 1.
-// bf16 inputs take the wgmma K6 and the mma.sync K7, fp32 inputs the FMA
-// kernels.
+// bf16 inputs take the wgmma kernels, fp32 inputs the FMA kernels.
 template <typename T, int D>
 cudaError_t launch_typed(const BwdArgs& a, int pass, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return pass == 0 ? launch_dkv_wgmma<D>(a, stream) : launch_dq_mma<D>(a, stream);
+    return pass == 0 ? launch_dkv_wgmma<D>(a, stream) : launch_dq_wgmma<D>(a, stream);
   } else {
     const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
     if (pass == 0) {
@@ -618,10 +745,12 @@ cudaError_t launch(const BwdArgs& a, int D, int pass, cudaStream_t stream) {
   }
 }
 
+// The bf16 plan of pass 0 (K6) or 1 (K7) at head_dim D: {rows a block, rows
+// a stage, stages, threads, dynamic shared memory bytes}.
 template <int D>
-void dkv_plan(long long* out) {
-  using P = DkvPlan<D>;
-  const long long plan[5] = {kWgRows, P::kQ, kWgStages, kWgThreads, static_cast<long long>(P::kSmem)};
+void bwd_plan(int pass, long long* out) {
+  const long long plan[5] = {kWgRows, pass == 0 ? DkvPlan<D>::kQ : DqPlan<D>::kKv, kWgStages, kWgThreads,
+                             static_cast<long long>(pass == 0 ? DkvPlan<D>::kSmem : DqPlan<D>::kSmem)};
   for (int i = 0; i < 5; ++i) out[i] = plan[i];
 }
 
@@ -649,13 +778,15 @@ extern "C" int flash_attn_bwd(
                                   : launch<float>(a, D, pass, st));
 }
 
-// K6's bf16 plan at head_dim D: {kv rows a block, q rows a stage, stages,
-// threads, dynamic shared memory bytes}.
-extern "C" int flash_attn_bwd_plan(int D, long long* out) {
+// The bf16 plan of K6 (pass 0: kv rows a block, q rows a stage) or K7 (pass
+// 1: q rows a block, kv rows a stage) at head_dim D: {rows a block, rows a
+// stage, stages, threads, dynamic shared memory bytes}.
+extern "C" int flash_attn_bwd_plan(int D, int pass, long long* out) {
+  if (pass != 0 && pass != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 32: flash::dkv_plan<32>(out); return 0;
-    case 64: flash::dkv_plan<64>(out); return 0;
-    case 128: flash::dkv_plan<128>(out); return 0;
+    case 32: flash::bwd_plan<32>(pass, out); return 0;
+    case 64: flash::bwd_plan<64>(pass, out); return 0;
+    case 128: flash::bwd_plan<128>(pass, out); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

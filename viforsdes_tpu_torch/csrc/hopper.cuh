@@ -1,5 +1,5 @@
 // Hopper building blocks of the bf16 flash-attention kernels K5
-// (flash_attn_fwd.cu) and K6 (flash_attn_bwd.cu, pass 0), in inline PTX for
+// (flash_attn_fwd.cu), K6 and K7 (flash_attn_bwd.cu), in inline PTX for
 // sm_90a, with no CUTLASS or CuTe:
 //   - mbarrier: init, arrive, arrive.expect_tx, try_wait.parity;
 //   - TMA: 4-D tile loads (cp.async.bulk.tensor) of a bf16 [B, H, S, D] view
@@ -26,10 +26,10 @@
 //
 // Fragments of the fp32 accumulator of m64nNk16, per thread of the warpgroup
 // (warp w of its four, g = lane / 4, c = 2 * (lane % 4)):
-//   d[4j + i] at row 16w + g + 8 * (i / 2), column 8j + c + i % 2,
-// the m16n8 pattern of mma.sync repeated over N: a row's columns lie in the
-// four lanes of a quad. The A fragment from registers of one depth step (16
-// columns) is the mma.sync m16n8k16 A fragment of the warp's 16 rows, so
+//   d[4j + i] at row 16w + g + 8 * (i / 2), column 8j + c + i % 2:
+// a row's columns lie in the four lanes of a quad. The A fragment from
+// registers of one depth step (16 columns) holds, per thread, the same rows
+// g and g + 8 and columns c, c + 1, c + 8, c + 9 of the warp's 16 rows, so
 // accumulator chunks 2kk and 2kk + 1, rounded to bf16 and packed
 // (a_from_acc), are the A operand of depth step kk of the next product.
 #pragma once
@@ -262,8 +262,6 @@ __device__ __forceinline__ void mma_ss<16>(float (&d)[8], uint64_t a, uint64_t b
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(accumulate));
 }
-
-template <>
 
 template <>
 __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {

@@ -34,18 +34,21 @@ the guarded two-group AdamW on ``-ELBO``, update the EMA.
   come from ``pretrain_draws``, which a test can replace.
 - Data parallel: pass a 1-D ``mesh`` (``parallel/mesh.py``), one process
   per rank, each building the trainer with the same arguments.
-  ``batch_size`` is the global batch. Each rank draws the step's global
-  draws as the mesh-less trainer does and keeps its contiguous share, so a
-  mesh run takes the mesh-less run's numbers sample for sample; the
-  microbatch gradients are summed locally, then all-reduced (SUM, then
-  divided by the mesh size, so a mesh of one gives the mesh-less bits)
-  with the ELBO terms, and every rank runs the same update on the same
-  numbers: params, EMA and AdamW moments stay bitwise equal across ranks.
-  The state is broadcast from the mesh's first rank after init,
-  ``set_theta_mean`` and ``restore_checkpoint`` (every rank reads the
-  checkpoint file). The console, the step callback and checkpoint writes
-  run on the mesh's first rank only. The local microbatch must be a
-  multiple of ``iw_samples``: an importance group never spans two ranks.
+  ``batch_size`` is the global batch and must divide over the mesh, as in
+  the JAX package. Each rank draws the step's global draws as the mesh-less
+  trainer does and keeps whole importance groups of each microbatch, as
+  evenly as they go (the first ranks one more where they do not divide; a
+  rank may hold none), so a mesh run takes the mesh-less run's numbers
+  sample for sample. Each rank weights its gradients and ELBO terms (means
+  over its groups) by its share of the microbatch's groups, and they are
+  all-reduced (SUM) into the global batch's means; a rank with no group
+  joins every all-reduce with zeros and runs no model. A mesh of one weights
+  by exactly 1 and gives the mesh-less bits. Every rank then runs the same
+  update on the same numbers: params, EMA and AdamW moments stay bitwise
+  equal across ranks. The state is broadcast from the mesh's first rank
+  after init, ``set_theta_mean`` and ``restore_checkpoint`` (every rank
+  reads the checkpoint file). The console, the step callback and checkpoint
+  writes run on the mesh's first rank only.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from viforsdes_tpu_torch.inference.elbo import compute_evidence_lower_bound, obs
 from viforsdes_tpu_torch.inference.ema import ema_init, ema_update
 from viforsdes_tpu_torch.inference.optimizer import GROUPS, ParamLayout, global_norm, make_optimizer
 from viforsdes_tpu_torch.inference.path_sampler import sample_diffusion_paths
-from viforsdes_tpu_torch.inference.types import EvidenceLowerBoundResult
+from viforsdes_tpu_torch.inference.types import EvidenceLowerBoundComponents, EvidenceLowerBoundResult
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
 from viforsdes_tpu_torch.parallel.mesh import DataGroup, data_group
 from viforsdes_tpu_torch.utils.console import Console
@@ -187,6 +190,11 @@ class VariationalInferenceTrainer:
         if mesh is not None:
             self._dp = data_group(mesh)
             _check_mesh_batch(config, self._dp.size)
+            # this rank's importance groups of each microbatch, and its share
+            self._groups = rank_groups(config, self._dp.rank, self._dp.size)
+            self._share = (self._groups[1] - self._groups[0]) / (
+                config.batch_size // config.grad_accum_steps // config.iw_samples
+            )
             requested = torch.device(device)
             if requested.type != self._dp.device.type or requested.index not in (None, self._dp.device.index):
                 raise ValueError(
@@ -430,7 +438,8 @@ class VariationalInferenceTrainer:
         """The standard-normal draws of one training step, one pair per
         microbatch, from the device generator seeded by ``(seed, step)``.
         Under a mesh each rank draws the global microbatches and keeps its
-        contiguous share of each."""
+        importance groups of each (``rank_groups``): their theta draws and
+        their ``iw_samples`` paths each."""
         self._train_gen.manual_seed(stream_seed(self.seed, 1, step))
         micro = self.config.batch_size // self.config.grad_accum_steps
         n_theta = micro // self.config.iw_samples
@@ -444,10 +453,10 @@ class VariationalInferenceTrainer:
                 generator=self._train_gen, device=self.device,
             )
             if self._dp is not None:
-                r, n = self._dp.rank, self._dp.size
-                k, m = n_theta // n, micro // n
-                theta_eps = theta_eps[r * k:(r + 1) * k]
-                noise = noise[:, r * m:(r + 1) * m].contiguous()
+                lo, hi = self._groups
+                iw = self.config.iw_samples
+                theta_eps = theta_eps[lo:hi]
+                noise = noise[:, lo * iw:hi * iw].contiguous()
             out.append((theta_eps, noise))
         return out
 
@@ -528,17 +537,23 @@ class VariationalInferenceTrainer:
         grads: dict[str, Tensor] | None = None
         results: list[EvidenceLowerBoundResult] = []
         for theta_eps, path_noise in draws:
-            leaves = {g: params[g].detach().requires_grad_() for g in GROUPS}
-            result = self._elbo_from_params(
-                self.layout.unpack(leaves), theta_eps, path_noise, obs_variance=obs_variance
-            )
-            g_micro = torch.autograd.grad(
-                -result.evidence_lower_bound, [leaves[g] for g in GROUPS], allow_unused=True
-            )
-            g_micro = {
-                g: torch.zeros_like(params[g]) if d is None else d
-                for g, d in zip(GROUPS, g_micro)
-            }
+            if path_noise.shape[1] == 0:
+                # a mesh rank without importance groups runs no model and
+                # adds zeros to the mesh's sums
+                g_micro = {g: torch.zeros_like(params[g]) for g in GROUPS}
+                result = _zero_result(self.device)
+            else:
+                leaves = {g: params[g].detach().requires_grad_() for g in GROUPS}
+                result = self._elbo_from_params(
+                    self.layout.unpack(leaves), theta_eps, path_noise, obs_variance=obs_variance
+                )
+                g_micro = torch.autograd.grad(
+                    -result.evidence_lower_bound, [leaves[g] for g in GROUPS], allow_unused=True
+                )
+                g_micro = {
+                    g: torch.zeros_like(params[g]) if d is None else d
+                    for g, d in zip(GROUPS, g_micro)
+                }
             grads = g_micro if grads is None else {g: grads[g] + g_micro[g] for g in GROUPS}
             results.append(_detach(result))
         accum = len(draws)
@@ -577,16 +592,18 @@ class VariationalInferenceTrainer:
     def _mesh_mean(
         self, grads: dict[str, Tensor], result: EvidenceLowerBoundResult
     ) -> tuple[dict[str, Tensor], EvidenceLowerBoundResult]:
-        """The mean over the mesh of the ranks' gradients and ELBO terms: an
-        all-reduce SUM per group buffer and one of the six terms, then a
-        division by the mesh size (every rank's terms are means over equal
-        shares, so this is the global batch's mean)."""
+        """The mean over the mesh of the ranks' gradients and ELBO terms: each
+        rank's means over its groups weighted by its share of the groups,
+        then an all-reduce SUM per group buffer and one of the six terms. A
+        rank that holds every group (a mesh of one) weights by 1, which
+        changes no bit."""
         terms = torch.stack([result.evidence_lower_bound, *result.components])
+        if self._share != 1.0:
+            grads = {g: v * self._share for g, v in grads.items()}
+            terms = terms * self._share
         for x in (*grads.values(), terms):
             dist.all_reduce(x, group=self._dp.group)
-        n = self._dp.size
-        terms = terms / n
-        return {g: v / n for g, v in grads.items()}, EvidenceLowerBoundResult(
+        return grads, EvidenceLowerBoundResult(
             evidence_lower_bound=terms[0], components=type(result.components)(*terms[1:])
         )
 
@@ -1003,28 +1020,35 @@ class VariationalInferenceTrainer:
 
 
 def _check_mesh_batch(config: TrainingConfig, n: int) -> None:
-    """The global batch, each microbatch and each rank's share of it must
-    split evenly; a rank's share holds whole importance groups."""
-    micro = config.batch_size // config.grad_accum_steps
+    """The global batch must split evenly over the mesh, as in the JAX
+    package; a microbatch need not (``rank_groups``)."""
     if config.batch_size % n != 0:
         raise ValueError(f"batch_size {config.batch_size} must divide over the {n}-way data mesh")
-    if micro % n != 0:
-        raise ValueError(
-            f"the microbatch batch_size / grad_accum_steps = {micro} must divide over the "
-            f"{n}-way data mesh"
-        )
-    if (micro // n) % config.iw_samples != 0:
-        raise ValueError(
-            f"the local microbatch batch_size / grad_accum_steps / mesh size = {micro // n} "
-            f"must be a multiple of iw_samples = {config.iw_samples}: an importance group "
-            "cannot span two ranks"
-        )
+
+
+def rank_groups(config: TrainingConfig, rank: int, n: int) -> tuple[int, int]:
+    """The importance groups ``[lo, hi)`` of each microbatch that ``rank`` of
+    an ``n``-way mesh holds: the microbatch's ``g`` groups in order, ``g // n``
+    a rank and one more on each of the first ``g % n`` ranks."""
+    groups = config.batch_size // config.grad_accum_steps // config.iw_samples
+    base, extra = divmod(groups, n)
+    lo = rank * base + min(rank, extra)
+    return lo, lo + base + (rank < extra)
 
 
 def _median(v: Tensor) -> float:
     """The median as numpy takes it (the mean of the middle two), for the
     pretrain panel."""
     return float(np.median(v.detach().cpu().numpy()))
+
+
+def _zero_result(device: torch.device) -> EvidenceLowerBoundResult:
+    """An ELBO and components of zeros: a rank without importance groups adds
+    nothing to the mesh's sums."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return EvidenceLowerBoundResult(
+        evidence_lower_bound=zero, components=EvidenceLowerBoundComponents(*(zero,) * 5)
+    )
 
 
 def _detach(result: EvidenceLowerBoundResult) -> EvidenceLowerBoundResult:

@@ -20,8 +20,8 @@ the JAX function's; their callers discard those rows.
 The wrappers launch the kernels (``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``) for CUDA tensors and take the plain versions only
 for CPU tensors; any other device raises. ``di = rowsum(o * do)`` is a plain
-reduction outside the kernels, as in the JAX package. With bf16 inputs K5 and
-K6 read q, k, v and do by TMA; ``flash_plan`` gives their launch plan.
+reduction outside the kernels, as in the JAX package. With bf16 inputs K5, K6
+and K7 read q, k, v and do by TMA; ``flash_plan`` gives their launch plan.
 """
 
 from __future__ import annotations
@@ -60,8 +60,9 @@ def use_flash_attention(seq_len: int) -> bool:
 
 # ------------------------------------------------------------ launch plan
 
-# The bf16 wgmma kernels K5 and K6 (``FwdPlan``, ``DkvPlan`` and the block
-# constants of ``csrc/flash_attn.cuh``): a block owns WGMMA_ROWS output rows
+# The bf16 wgmma kernels K5, K6 and K7 (``FwdPlan``, ``DkvPlan``, ``DqPlan``
+# and the block constants of ``csrc/flash_attn.cuh``): a block owns WGMMA_ROWS
+# output rows
 # (two consumer warpgroups of 64 and one producer warpgroup) and streams the
 # other side's rows through a ring of WGMMA_STAGES stages.
 WGMMA_ROWS = 128
@@ -70,17 +71,18 @@ WGMMA_STAGES = 4
 
 
 class FlashPlan(NamedTuple):
-    rows: int        # output rows of a block: q rows (K5), kv rows (K6)
-    tile_rows: int   # streamed rows a stage: kv rows (K5), q rows (K6)
+    rows: int        # output rows of a block: q rows (K5, K7), kv rows (K6)
+    tile_rows: int   # streamed rows a stage: kv rows (K5, K7), q rows (K6)
     stages: int
     threads: int
     smem_bytes: int  # dynamic shared memory, 1024 bytes of alignment included
 
 
 def flash_plan(kernel: str, head_dim: int) -> FlashPlan:
-    """The launch plan of K5 (``kernel="fwd"``) or K6 (``"dkv"``) with bf16
-    inputs at ``head_dim``; ``chip_smoke.py`` holds it equal to the kernels'
-    own (``flash_attn_fwd_plan``, ``flash_attn_bwd_plan``)."""
+    """The launch plan of K5 (``kernel="fwd"``), K6 (``"dkv"``) or K7
+    (``"dq"``) with bf16 inputs at ``head_dim``; ``chip_smoke.py`` holds it
+    equal to the kernels' own (``flash_attn_fwd_plan``,
+    ``flash_attn_bwd_plan``)."""
     d = head_dim
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {d} has no kernel")
@@ -90,6 +92,9 @@ def flash_plan(kernel: str, head_dim: int) -> FlashPlan:
     elif kernel == "dkv":  # k and v fixed; q and do tiles (TMA), lse and di streamed
         tile = 16 if d == 128 else 32
         fixed, stage = 2 * (2 * WGMMA_ROWS * d), 2 * (2 * tile * d) + 2 * 4 * tile
+    elif kernel == "dq":  # q and do fixed; k and v tiles streamed
+        tile = 32 if d == 128 else 64
+        fixed, stage = 2 * (2 * WGMMA_ROWS * d), 2 * (2 * tile * d)
     else:
         raise ValueError(f"flash_plan: unknown kernel {kernel!r}")
     barriers = 8 * (1 + 2 * WGMMA_STAGES)
@@ -108,9 +113,9 @@ def tma_readable(t: Tensor) -> bool:
 
 
 def _tma_operand(t: Tensor) -> Tensor:
-    """``t`` where the kernels can read it through its strides (TMA for K5
-    and K6, vector loads for K7), else a contiguous copy; refused before any
-    launch if even the copy is not readable."""
+    """``t`` where the kernels can read it through its strides (TMA for the
+    bf16 kernels, vector loads for the fp32 ones), else a contiguous copy;
+    refused before any launch if even the copy is not readable."""
     t = kernel_operand(t)
     if not tma_readable(t):
         t = t.clone(memory_format=torch.contiguous_format)
@@ -185,10 +190,18 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         raise ValueError("flash attention: q, k, v must be on one device")
 
 
+def _check_scale(sm_scale: float) -> None:
+    """The kernels take the row max on unscaled scores (K5) and fold
+    log2(scale) into the exponent (K7): both need a positive scale."""
+    if not sm_scale > 0:
+        raise ValueError(f"flash attention: sm_scale must be positive, got {sm_scale}")
+
+
 def _forward_cuda(
     q: Tensor, k: Tensor, v: Tensor, real_len: int, sm_scale: float
 ) -> tuple[Tensor, Tensor]:
     _check(q, k, v)
+    _check_scale(sm_scale)
     q, k, v = (_tma_operand(t) for t in (q, k, v))
     b, h, s, d = q.shape
     out = bshd_empty(q)
@@ -210,6 +223,7 @@ def _backward_operands(
     """The C arguments of K6 and K7 (inputs, ``di = rowsum(o * do)`` and the
     gradients they write) and the gradient tensors."""
     _check(q, k, v)
+    _check_scale(sm_scale)
     if do.shape != q.shape or do.device != q.device:
         raise ValueError("flash attention backward: do must match q in shape and device")
     q, k, v, do = (_tma_operand(t) for t in (q, k, v, do.to(q.dtype)))

@@ -5,14 +5,19 @@ PyTorch runs one process per device, so a mesh here is a 1-D
 ``torch.distributed.device_mesh.DeviceMesh`` over the ``"data"`` axis whose
 entries are process ranks. The trainer (``inference/trainer.py``) keeps the
 params, EMA and AdamW state replicated: every rank draws the step's global
-Monte-Carlo batch from the same seed and keeps its contiguous share, sums
-its microbatch gradients, all-reduces them (and the ELBO terms) over the
-mesh's group, and then runs the same update on the same numbers, so the
-replicas stay bitwise equal by construction. The reference's DDP wrapper never
+Monte-Carlo batch from the same seed and keeps whole importance groups of
+each microbatch, as evenly as they go (a microbatch need not divide over the
+mesh, and a rank may hold no group), weights its microbatch gradients and
+ELBO terms by its share of the groups, all-reduces them over the mesh's
+group, and then runs the same update on the same numbers, so the replicas
+stay bitwise equal by construction. The reference's DDP wrapper never
 synchronized gradients (SURVEY §2.3).
 
 Semantics, as in the JAX package: ``batch_size`` is the GLOBAL batch, sharded
-over the mesh (``local_batch_size`` gives the per-rank share).
+over the mesh, and it must divide over the mesh. ``local_batch_size`` is
+``batch_size / n``, as in JAX; what each rank actually holds of a microbatch
+is ``inference/trainer.py``'s ``rank_groups`` (at batch 8 with ``iw_samples``
+4 on 4 ranks: 4, 4, 0 and 0 paths).
 
 Process group: ``make_data_mesh`` uses the default process group when one is
 initialized; otherwise it initializes one from the ``torchrun`` environment
