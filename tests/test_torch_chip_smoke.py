@@ -79,3 +79,40 @@ def test_nbytes_walks_containers_and_skips_the_rest():
     t = torch.empty((5, 7), dtype=torch.bfloat16, device="meta")
     spec = SamplerSpec(3, 64, 2, 0.01, 1e-3)
     assert chip_smoke.nbytes(t, (spec, None, [t, 3.0])) == 2 * 5 * 7 * 2
+
+
+def _round_f32(v):
+    """The float32 nearest to the exact rational ``v``, ties to even."""
+    import fractions
+
+    import numpy as np
+
+    r = np.float32(float(v))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+    dist = [abs(fractions.Fraction(float(c)) - v) for c in cands]
+    best = min(dist)
+    ties = [c for c, e in zip(cands, dist) if e == best]
+    return min(ties, key=lambda c: int(np.float32(c).view(np.int32)) & 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fma_gru_update_rounds_once(seed):
+    """``fma_gru_update`` gives ``fmaf(z, h, (1 - z) * n)``: the product and
+    the sum rounded once to fp32, checked against exact rationals on random
+    values and on sums built to fall exactly between two floats."""
+    import fractions
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0, 1, 400).astype(np.float32)
+    h = rng.uniform(-1, 1, 400).astype(np.float32)
+    n = rng.uniform(-1, 1, 400).astype(np.float32)
+    # ties: z * h exactly half an ulp of p away from p, with p = (1 - z) * n
+    z[:4], n[:4] = np.float32(0.5), np.float32(1.0)
+    h[:4] = np.float32(2.0) ** np.float32(-24) * np.array([1, -1, 3, -3], np.float32)
+    got = chip_smoke.fma_gru_update(torch, *(torch.from_numpy(a) for a in (z, h, n))).numpy()
+    for i in range(len(z)):
+        p = np.float32(np.float32(1.0) - z[i]) * n[i]
+        exact = fractions.Fraction(float(z[i])) * fractions.Fraction(float(h[i])) + fractions.Fraction(float(p))
+        assert got[i] == _round_f32(exact), i

@@ -39,7 +39,7 @@ def _plan() -> ss.ForwardPlan:
     n_out = SPEC.n_out
     layers = sum(_layer_rows(l) for l in range(L)) * UNITS * 4
     out = n_out * LD_OUT + n_out + (-n_out % 4)
-    return ss.ForwardPlan(True, 32 * 3, 0, 0, layers + out, LD_OUT, UNITS)
+    return ss.ForwardPlan(ss.PATH_STAGED, 1, 1, 32 * 3, 0, layers + out, UNITS, LD_OUT, 0, 0, 0, 0)
 
 
 def _vec(rows: int, cols: int, seed: int) -> torch.Tensor:
@@ -102,9 +102,11 @@ def test_forward_pack_refuses_a_plan_of_another_size():
     [(1, 1), (32, 1), (128, 1), (132, 1), (133, 2), (264, 2), (265, 4), (528, 4), (5000, 4)],
 )
 def test_forward_rows_keeps_one_wave(batch, want):
-    """K1 takes its rows per block by K2's rule: the fewest of 1, 2, 4 whose
-    blocks fit one wave on 132 SMs (4 past that)."""
-    rows = ss.rows_per_block(batch, n_sms=132)
+    """K1's one-block path takes its rows per block by the row rule it
+    shares with K2 and the cluster path (``cluster_rows`` with the 132
+    blocks the card runs at once, at most 4 rows): the fewest of 1, 2, 4 whose blocks fit one wave on 132
+    SMs (4 past that)."""
+    rows = ss.cluster_rows(batch, 132, 4)
     assert rows == want
     blocks = -(-batch // rows)
     assert blocks <= 132 or rows == ss.ROWS_PER_BLOCK[-1]
@@ -116,7 +118,7 @@ def test_forward_rows_keeps_one_wave(batch, want):
     "hidden,sampler,device,refused",
     [
         (256, "auto", "cuda", False),   # 32 warps of units: K1's widest, the last warp runs the output phase
-        (264, "auto", "cuda", True),
+        (264, "auto", "cuda", False),   # auto takes the plain loop above 256, as JAX's auto takes its scan
         (264, "pallas", "cuda", True),
         (264, "scan", "cuda", False),   # the plain loop takes any width
         (264, "auto", "cpu", False),    # auto on the CPU is the plain loop
@@ -124,13 +126,14 @@ def test_forward_rows_keeps_one_wave(batch, want):
 )
 def test_a_head_wider_than_k1_takes_is_refused_at_construction(hidden, sampler, device, refused):
     """K1 runs one warp per 8 hidden units in at most 1024 threads, so it
-    takes H <= 256; a wider head that would reach it is refused when the
-    model is built, naming the limit and the plain sampler, not at the first
-    step (no card is touched: the device only says where the paths run)."""
+    takes H <= 256. A wider head under ``"auto"`` takes the plain loop; under
+    ``"pallas"`` it is refused when the model is built, naming the limit and
+    the plain samplers, not at the first step (no card is touched: the
+    device only says where the paths run)."""
     assert ss.K1_MAX_HIDDEN == 1024 // 32 * 8
     config = HeadConfig(hidden_dim=hidden, num_layers=2, sampler=sampler)
     if refused:
-        with pytest.raises(ValueError, match=r'hidden_dim <= 256; pass sampler="scan"'):
+        with pytest.raises(ValueError, match=r'hidden_dim <= 256; pass sampler="auto" or "scan"'):
             DiffusionTransitionHead(3, 8, 3, config, device=torch.device(device))
     else:
         head = DiffusionTransitionHead(3, 8, 3, config, device=torch.device(device))

@@ -26,7 +26,7 @@ def _weights(seed: int) -> ss.SamplerWeights:
 
 
 def _plan(ld0: int, ld1: int) -> ss.BackwardPlan:
-    return ss.BackwardPlan(ld0, ld1, True, 128, 0, 3 * H * (ld0 + (L - 1) * ld1))
+    return ss.BackwardPlan(ss.PATH_STAGED, 1, 1, 128, 0, 3 * H * (ld0 + (L - 1) * ld1), ld0, ld1, 0, 0, 0, 0)
 
 
 SPEC = ss.SamplerSpec(state_dim=D, hidden_dim=H, num_layers=L, time_step=0.01, diag_min=1e-3)
@@ -62,4 +62,4 @@ def test_pack_refuses_a_plan_of_another_size():
     [(1, 1), (32, 1), (128, 1), (132, 1), (133, 2), (264, 2), (265, 4), (528, 4), (5000, 4)],
 )
 def test_backward_rows_keeps_one_wave(batch, want):
-    assert ss.rows_per_block(batch, n_sms=132) == want
+    assert ss.cluster_rows(batch, 132, 4) == want

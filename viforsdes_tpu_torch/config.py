@@ -197,7 +197,9 @@ class EncoderConfig(YamlConfig):
     num_heads: int = 4
     depth: int = 4
     mlp_ratio: float = 8 / 3
-    # The port's SiT stack is plain PyTorch with dense attention.
+    # The port's SiT stack is plain PyTorch with dense attention up to 512
+    # tokens; longer grids take the QK-prep and flash-attention kernels
+    # (K3-K7, ops/qk_prep.py and ops/flash_attention.py).
 
     @field_validator("hidden_dim", "cond_dim", "num_heads", "depth")
     @classmethod
@@ -227,8 +229,10 @@ class HeadConfig(YamlConfig):
     hidden_dim: int = 64
     num_layers: int = 2
     # Path-sampler backend: "auto" = the hand-written CUDA kernels on a CUDA
-    # device, the plain loop on the CPU; "pallas" = the kernels (the name is
-    # kept from the JAX package); "scan" = the plain loop everywhere.
+    # device up to the widest head they take (hidden_dim <= 256), the plain
+    # loop above it and on the CPU; "pallas" = the kernels (the name is kept
+    # from the JAX package), refused above hidden_dim 256 on a CUDA device;
+    # "scan" = the plain loop everywhere.
     sampler: str = "auto"
     # The TPU kernel's batch tile. The CUDA kernels take their rows per
     # block from the batch (``rows_per_block`` in ops/sde_sampler.py), so the

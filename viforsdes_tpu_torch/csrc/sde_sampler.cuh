@@ -6,9 +6,12 @@
 // deeper GRU layers (1..L-1) are stacked along a leading [L-1] axis.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace sde_sampler {
+
+namespace cg = cooperative_groups;
 
 // Shared memory a block may use without opting in.
 constexpr size_t kDefaultSmem = 48 * 1024;
@@ -102,6 +105,161 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- clusters
+//
+// The cluster kernels (fwd_cluster_kernel, bptt_cluster_kernel) split every
+// product of a step by its output columns over the C CTAs of a thread-block
+// cluster, so that each CTA holds 1/C of the weights in its shared memory:
+//  - hidden units: CTA c owns units [c*uc, (c+1)*uc), uc = H / C, a multiple
+//    of 8 (its warps' unit groups);
+//  - state entries: entry i belongs to CTA `entry_owner(i, C)`, dealt out in
+//    a snake (0, 1, .., C-1, C-1, .., 0, 0, ..) so that the rows of the tril
+//    table, i + 1 values long, balance; a CTA's output columns are, entry by
+//    entry in increasing i, mu_i and then row i of the tril values (its
+//    "segment"), padded to `nop` columns, a multiple of 32.
+// What a CTA computes that others need travels through distributed shared
+// memory (stores into the peers' buffers), one cluster barrier per dependent
+// phase. At C = 1 the same kernel runs on one CTA, its barriers those of
+// the block.
+
+constexpr int kMaxCluster = 4;
+
+// Threads of a cluster kernel's CTA, at most: 24 warps leave ptxas 85
+// registers a thread (at 1024 the rows' accumulators spilled).
+constexpr int kClusterThreads = 768;
+
+__host__ __device__ inline int entry_owner(int i, int C) {
+  const int q = i % (2 * C);
+  return q < C ? q : 2 * C - 1 - q;
+}
+
+// tril values in row i of the Cholesky factor
+__host__ __device__ inline int row_values(int i, int diag) { return diag ? 1 : i + 1; }
+
+// The output columns and state entries of CTA c: `cols` = sum of 1 + row
+// values over its entries, `entries` = how many it owns.
+inline void cta_columns(int D, int diag, int C, int c, int* cols, int* entries) {
+  *cols = 0;
+  *entries = 0;
+  for (int i = 0; i < D; ++i)
+    if (entry_owner(i, C) == c) {
+      *cols += 1 + row_values(i, diag);
+      *entries += 1;
+    }
+}
+
+// The widest CTA's columns, padded to whole warps, and the most entries a CTA
+// owns.
+inline void cluster_columns(int D, int diag, int C, int* nop, int* slots) {
+  int most = 0, entries = 0;
+  *slots = 0;
+  for (int c = 0; c < C; ++c) {
+    int cols = 0;
+    cta_columns(D, diag, C, c, &cols, &entries);
+    most = cols > most ? cols : most;
+    *slots = entries > *slots ? entries : *slots;
+  }
+  *nop = (most + 31) / 32 * 32;
+}
+
+// Ints of one CTA's row of the layout the caller passes (`cluster_layout`
+// in ops/sde_sampler.py): ocol[nop] (the global output column of each local
+// column, -1 past its own), erow[slots] (its state entries, -1 past its
+// own), eseg[slots] (the local column of each one's mu), mslot[nop] and
+// mj[nop] (each local column's entry slot and tril column j, -1 for mu),
+// jslot[D] (the slot of every state entry in the CTA that owns it).
+__host__ __device__ inline int layout_width(int D, int nop, int slots) { return 3 * nop + 2 * slots + D; }
+
+// Rows a cluster (or a lone block) carries: 1, 2, 4 or a multiple of 4.
+inline int round_rows(int rows) {
+  if (rows <= 2) return rows < 1 ? 1 : rows;
+  if (rows <= 4) return 4;
+  return (rows + 3) / 4 * 4;
+}
+
+// The largest of those not above `rows`.
+inline int floor_rows(int rows) {
+  if (rows >= 4) return rows / 4 * 4;
+  return rows >= 2 ? 2 : 1;
+}
+
+// The row rule (`cluster_rows` in ops/sde_sampler.py): the fewest rows a
+// cluster (a lone block on the one-block paths) that keep the clusters of a
+// batch of B within one wave of the `per_wave` clusters the card runs at
+// once; where `max_rows` (what shared memory and the threads allow) cannot,
+// the fewest waves, with the rows spread evenly over them.
+inline int cluster_waves(int B, int per_wave, int max_rows) {
+  per_wave = per_wave > 0 ? per_wave : 1;
+  return (B + per_wave * max_rows - 1) / (per_wave * max_rows);
+}
+
+inline int cluster_rows(int B, int per_wave, int max_rows) {
+  per_wave = per_wave > 0 ? per_wave : 1;
+  const int waves = cluster_waves(B, per_wave, max_rows);
+  const int rows = round_rows((B + per_wave * waves - 1) / (per_wave * waves));
+  return rows < max_rows ? rows : max_rows;
+}
+
+// The card's multiprocessors.
+inline cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// A barrier of every thread of the cluster that orders the stores into the
+// peers' shared memory before it against the reads after it (a block barrier
+// at C = 1).
+__device__ __forceinline__ void cluster_barrier(int C) {
+  if (C == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+// Launch `kernel` on `clusters` clusters of C CTAs.
+template <typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Args...), int clusters, int C, int threads, size_t smem,
+                                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// How many clusters of C CTAs of `kernel` (`threads`, `smem` bytes each) the
+// card holds at once: at most n_sms / C, fewer where the multiprocessors of
+// a GPC do not divide into whole clusters (30 clusters of 4 on an H100 SXM
+// at one CTA a multiprocessor).
+template <typename... Args>
+inline cudaError_t max_active_clusters(void (*kernel)(Args...), int C, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 template <typename Kernel>

@@ -23,7 +23,12 @@
 //     step and layer to `acts` [L, T, B, 4H]. Its sums and nonlinearities are
 //     K1's (`gate_sums`, `gru_gates` in sde_sampler.cuh), so the gates are
 //     K1's to the bit.
-//  2. bptt_kernel: one block per `rows` batch rows walks the reverse steps.
+//  2. the BPTT loop, by shape in `make_bwd_plan`: bptt_cluster_kernel
+//     (below: a cluster of 2 or 4 CTAs holding the matrices between them,
+//     K1's column split) where the matrices fit a cluster and not a block
+//     (a 32-dimensional state, H=64 with three layers, H=96); else
+//     bptt_kernel, one block per `rows` batch rows, which walks the reverse
+//     steps as follows.
 //     - The matrices the loop reads (per layer, W_hh^T beside W_ih^T or
 //       W_x^T, packed by the caller with a padded row stride) are staged in
 //       shared memory once per block when they fit the block's opt-in limit
@@ -71,6 +76,8 @@ struct BwdArgs {
   const float* w_outT;    // [D + n_tril, H]
   const int* tril_rows;
   const int* tril_cols;
+  const float* w_clu;     // the cluster path: each CTA's packed slices (pack_bptt_weights)
+  const int* layout;      // the cluster path: per CTA its columns and entries (cluster_layout)
   float* acts;            // [L, T, B, 4H]  r, z, n, n_hh (scratch)
   float* d_gc;            // [T, B, 3H]   (= d_gi of layer 0)
   float* d_eps;           // [T, B, D]
@@ -78,7 +85,7 @@ struct BwdArgs {
   float* d_gh;            // [L, T, B, 3H]
   float* d_gi;            // [L-1, T, B, 3H]
   float* d_out;           // [T, B, D + n_tril]
-  int B, T, D, H, L, n_tril;
+  int B, T, D, H, L, n_tril, diag;
   float dt, sqrt_dt, diag_min;
 };
 
@@ -178,6 +185,7 @@ struct Plan {
   int staged;     // 1: the packed matrices live in shared memory
   int threads;
   size_t smem;    // dynamic shared memory of bptt_kernel
+  size_t smem_staged, smem_streaming;
   size_t w_floats;  // floats of the packed matrices (the caller's w_bptt)
 };
 
@@ -187,9 +195,9 @@ __host__ __device__ inline int stage_row(int D, int H, int L, int n_tril) {
   return 5 * L * H + 4 * D + 2 * n_tril;
 }
 
-// The launch of bptt_kernel for a shape, chosen by shape alone: staged when
-// the packed matrices and the rest fit the card's opt-in shared memory.
-inline cudaError_t make_plan(int D, int H, int L, int n_tril, int rows, Plan* p) {
+// The launch of bptt_kernel for a shape at `rows` rows a block: staged when
+// the packed matrices and the rest fit `optin` bytes of shared memory.
+inline cudaError_t make_plan(int D, int H, int L, int n_tril, int rows, int optin, Plan* p) {
   const size_t G = 3 * (size_t)H, NO = (size_t)D + n_tril, LH = (size_t)L * H;
   p->ld0 = packed_ld(H + D);
   p->ld1 = packed_ld(2 * H);
@@ -198,9 +206,8 @@ inline cudaError_t make_plan(int D, int H, int L, int n_tril, int rows, Plan* p)
                       rows * (LH + 2 * G + 2 * (size_t)H + NO + D);
   const size_t base = sizeof(float) * work + sizeof(int) * 2 * n_tril;
   const size_t staged = base + sizeof(float) * (p->w_floats + NO * H);
-  int optin = 0;
-  cudaError_t err = optin_smem(&optin);
-  if (err != cudaSuccess) return err;
+  p->smem_staged = staged;
+  p->smem_streaming = base;
   p->staged = staged <= (size_t)optin ? 1 : 0;
   p->smem = p->staged ? staged : base;
   const int cols = H + (L > 1 ? H : D);  // outputs of the widest matvec
@@ -485,44 +492,513 @@ __global__ void wgrad_sum(const float* partial, int n_split, int ka, int kt, int
   else db[j] = acc;
 }
 
+// ------------------------------------------------------- the cluster BPTT
+//
+// bptt_cluster_kernel: the reverse-time loop on a cluster of C CTAs that
+// split every product by the columns K1's cluster path gives them
+// (sde_sampler.cuh, "clusters"): CTA c owns hidden units c*uc .. and the
+// output columns of its state entries, and holds, per layer, the rows of
+// W_hh and of W_x / W_ih that its units' gate columns read ([uc][H + in] of
+// float4 {r, z, n, 0}), and the rows of W_out for its output columns
+// ([nop][H]). A transposed product is then a sum over the CTAs: each CTA
+// forms its part, over its own units or columns, of every output (a lane an
+// output, whole dot products over rw rows), stores it into the owner's
+// shared memory, and after one cluster barrier the owner adds the C parts
+// in CTA order. Per reverse step:
+//  - output phase: d_out of the CTA's columns (the Euler update's and the
+//    lower_bound rule's backward), its part of d_eps (its rows of L times
+//    the cotangent, summed along its entries' tril rows) and of
+//    dL/dh_top = d_out W_out^T; one cluster barrier;
+//  - each layer, top down: the GRU backward of its units (gate cotangents
+//    written out for the weight gradients), its parts of dh_{t-1} = d_gh
+//    W_hh^T and of the cotangent sent down (d_gi W_ih^T, or d_gi W_x^T for
+//    layer 0); one cluster barrier; the owners add the parts.
+// Parts are double-buffered by the parity of the barrier count, so a fast
+// CTA's next parts never land on ones still being added. The streams a
+// CTA's units and entries read (acts, h_{t-1}, d_paths, eps) arrive by
+// cp.async into one stage, refilled for the next step once layer 0's
+// backward has read it; raw and the direct cotangents are read from device
+// memory where they are used. Each row's sums run in one order whatever
+// the rows a cluster or the warps, so the result does not depend on them
+// and repeats run to run; no atomics. Plain fp32 FMA (PERF.md, section 6).
+
+constexpr int kLoads = 4;  // device-memory loads a thread issues together in the output phase
+
+struct ClusterBwdPlan {
+  int uc, nop, slots;
+  int sr;           // floats of one row of the stage
+  int rw;           // rows a warp carries (1, 2 or 4)
+  size_t w_floats;  // floats of one CTA's packed slices
+};
+
+inline size_t cluster_bwd_w_floats(int D, int H, int L, int uc, int nop) {
+  return 4 * (size_t)uc * ((size_t)(H + D) + (size_t)(L - 1) * 2 * H) + (size_t)nop * H;
+}
+
+inline void make_cluster_bwd(int D, int H, int L, int diag, int C, ClusterBwdPlan* c) {
+  c->uc = H / C;
+  cluster_columns(D, diag, C, &c->nop, &c->slots);
+  c->sr = (5 * L * c->uc + c->slots + D + 3) / 4 * 4;
+  c->w_floats = cluster_bwd_w_floats(D, H, L, c->uc, c->nop);
+}
+
+inline size_t cluster_bwd_smem(int D, int L, int C, int rows, const ClusterBwdPlan& c) {
+  const size_t R = rows, uc = c.uc, S = c.slots;
+  const size_t floats = c.w_floats + R * c.sr + R * L * uc + 2 * R * S + R * c.nop + R * uc * 4 + R * uc +
+                        2 * 2 * (size_t)C * R * uc + 2 * (size_t)C * R * S;
+  return sizeof(float) * floats + sizeof(int) * (size_t)layout_width(D, c.nop, c.slots);
+}
+
+inline int cluster_bwd_threads(int rows, int uc) {
+  int n = (rows * uc + 31) / 32 * 32;
+  return n < 128 ? 128 : n > kClusterThreads ? kClusterThreads : n;
+}
+
+inline int cluster_bwd_max_rows(int D, int H, int L, int diag, int C, int optin) {
+  ClusterBwdPlan c;
+  make_cluster_bwd(D, H, L, diag, C, &c);
+  int best = 0;
+  for (int r = 1; r <= 256; r = r < 4 ? 2 * r : r + 4) {
+    if (cluster_bwd_smem(D, L, C, r, c) > (size_t)optin) break;
+    best = r;
+  }
+  return best;
+}
+
+template <int RW>
+__global__ void __launch_bounds__(kClusterThreads, 1) bptt_cluster_kernel(BwdArgs a, ClusterBwdPlan p, int C, int R) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, G = 3 * a.H, L = a.L, D = a.D, NO = a.D + a.n_tril;
+  const int UC = p.uc, NOP = p.nop, S = p.slots, SR = p.sr;
+  const size_t TB = (size_t)a.T * a.B;
+  const int c = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
+  float* w_s = smem;                              // this CTA's packed slices
+  float* stage_s = w_s + p.w_floats;              // [R][SR] acts [L][4][UC] | h_{t-1} [L][UC] | d_paths [S] | eps [D]
+  float4* dg_s = reinterpret_cast<float4*>(stage_s + R * SR);  // [R][UC] {da_r, da_z, da_n, da_n * r}
+  float* dh_s = reinterpret_cast<float*>(dg_s + R * UC);       // [R][L][UC] dL/dh_t of its units (carried)
+  float* dir_s = dh_s + R * L * UC;               // [R][UC]    z * d_h
+  float* dout_s = dir_s + R * UC;                 // [R][NOP]   d_out of its columns
+  float* pfa_s = dout_s + R * NOP;                // [2][C][R][UC] parts of the cotangent into h (by parity)
+  float* pdh_s = pfa_s + 2 * C * R * UC;          // [2][C][R][UC] parts of dh_{t-1}
+  float* dx_s = pdh_s + 2 * C * R * UC;           // [R][S]     dL/dx_{t+1} of its entries (carried)
+  float* dxn_s = dx_s + R * S;                    // [R][S]     d_paths + dx: the cotangent of x_{t+1}
+  float* pdx_s = dxn_s + R * S;                   // [C][R][S]  parts of d_gi0 W_x^T
+  float* pep_s = pdx_s + C * R * S;               // [C][R][S]  parts of d_eps
+  int* ocol_s = reinterpret_cast<int*>(pep_s + C * R * S);
+  int* erow_s = ocol_s + NOP;
+  int* eseg_s = erow_s + S;
+  int* mslot_s = eseg_s + S;
+  int* mj_s = mslot_s + NOP;
+  int* jslot_s = mj_s + NOP;
+  const int o_hp = 4 * L * UC, o_dp = o_hp + L * UC, o_eps = o_dp + S;  // offsets within a stage row
+
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
+  const int b0 = (blockIdx.x / C) * R;
+  const int in0 = H + D, in1 = 2 * H;  // columns of a layer's packed rows
+  auto layer_w = [&](int l) {
+    return reinterpret_cast<const float4*>(w_s) + (l == 0 ? 0 : (size_t)UC * (in0 + (size_t)(l - 1) * in1));
+  };
+  const float* w_o = w_s + 4 * (size_t)UC * (in0 + (size_t)(L - 1) * in1);  // [NOP][H]
+
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.w_clu + (size_t)c * p.w_floats);
+    float4* dst = reinterpret_cast<float4*>(w_s);
+    for (size_t i = tid; i < p.w_floats / 4; i += nt) dst[i] = src[i];
+    const int lw = layout_width(D, NOP, S);
+    const int* lay = a.layout + (size_t)c * lw;
+    for (int i = tid; i < lw; i += nt) ocol_s[i] = lay[i];
+  }
+  for (int i = tid; i < R * L * UC; i += nt) dh_s[i] = 0.0f;
+  for (int i = tid; i < R * S; i += nt) dx_s[i] = 0.0f;
+  __syncthreads();  // the tables
+
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < R * SR; i += nt) {
+      const int r = i / SR, e = i % SR, b = b0 + r;
+      const size_t row = (size_t)t * a.B + b;
+      bool valid = b < a.B;
+      const float* src = a.eps;
+      if (e < o_hp) {  // acts of its units: [l][g][u] from [L, T, B, 4H]
+        const int l = e / (4 * UC), g = (e / UC) % 4, u = e % UC;
+        src = a.acts + ((size_t)l * TB + row) * 4 * H + g * H + c * UC + u;
+      } else if (e < o_dp) {  // h_{t-1} of its units
+        const int l = (e - o_hp) / UC, u = (e - o_hp) % UC;
+        valid = valid && t > 0;
+        src = a.h_all + (row - a.B) * (size_t)(L * H) + l * H + c * UC + u;
+      } else if (e < o_eps) {  // d_paths of its entries
+        const int en = erow_s[e - o_dp];
+        valid = valid && en >= 0;
+        src = a.d_paths + row * D + (en < 0 ? 0 : en);
+      } else if (e < o_eps + D) {
+        src = a.eps + row * D + (e - o_eps);
+      } else {
+        valid = false;
+      }
+      cp_async4(stage_s + i, valid ? src : a.eps, valid);
+    }
+    cp_async_commit();
+  };
+  // store v into the owner's buffer (CTA `owner`)
+  auto put = [&](float* buf, int owner, size_t idx, float v) {
+    float* dst = C == 1 ? buf : cg::this_cluster().map_shared_rank(buf, owner);
+    dst[idx] = v;
+  };
+
+  prefetch(a.T - 1);
+  cluster_barrier(C);  // every CTA's tables and buffers before any peer writes
+  int phase = 0;       // barriers passed; parts use buffer phase & 1
+
+  for (int t = a.T - 1; t >= 0; --t) {
+    cp_async_wait_all();
+    __syncthreads();  // step t's stage; last step's sums
+    for (int i = tid; i < R * S; i += nt) {
+      const int r = i / S, s = i % S;
+      dxn_s[i] = erow_s[s] < 0 ? 0.0f : stage_s[r * SR + o_dp + s] + dx_s[i];
+    }
+    __syncthreads();
+
+    // ---- output phase: d_out of its columns, its parts of d_eps --------------
+    // d_out of its columns, kLoads items a thread at a time: their loads from
+    // device memory (the direct cotangent, raw on the diagonal) go out together
+    for (int i0 = tid; i0 < R * NOP; i0 += kLoads * nt) {
+      float direct[kLoads], raw_v[kLoads];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = i0 + q * nt, r = i / NOP, m = i % NOP, b = b0 + r;
+        const int o = i < R * NOP ? ocol_s[m] : -1;
+        const size_t row = (size_t)t * a.B + b;
+        direct[q] = raw_v[q] = 0.0f;
+        if (o >= 0 && b < a.B) {
+          direct[q] = o < D ? __ldg(a.d_means + row * D + o) : __ldg(a.d_cholv + row * a.n_tril + (o - D));
+          if (o >= D && erow_s[mslot_s[m]] == mj_s[m]) raw_v[q] = __ldg(a.raw + row * NO + o);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = i0 + q * nt, r = i / NOP, m = i % NOP, b = b0 + r;
+        if (i >= R * NOP) break;
+        const int o = ocol_s[m];
+        float dv = 0.0f;
+        if (o >= 0 && b < a.B) {
+          const float dxn = dxn_s[r * S + mslot_s[m]];
+          if (o < D) {
+            dv = direct[q] + dxn * a.dt;
+          } else {
+            const int j = mj_s[m];
+            dv = direct[q] + dxn * stage_s[r * SR + o_eps + j] * a.sqrt_dt;
+            if (erow_s[mslot_s[m]] == j && !(raw_v[q] >= a.diag_min || dv < 0.0f)) dv = 0.0f;
+          }
+          a.d_out[((size_t)t * a.B + b) * NO + o] = dv;
+        }
+        dout_s[r * NOP + m] = dv;
+      }
+    }
+    // its parts of d_eps[j]: over its entries e >= j (diag: e == j), dxn_e
+    // times L_ej (the diagonal clamped), kLoads entries' raw loaded together
+    for (int i = tid; i < R * D; i += nt) {
+      const int r = i / D, j = i % D, b = b0 + r;
+      const size_t row = (size_t)t * a.B + b;
+      float acc = 0.0f;
+      for (int s0 = 0; s0 < S && b < a.B; s0 += kLoads) {
+        float v[kLoads];
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int s = s0 + q, e = s < S ? erow_s[s] : -1;
+          const bool on = e >= 0 && (a.diag ? e == j : e >= j);
+          v[q] = on ? __ldg(a.raw + row * NO + ocol_s[eseg_s[s] + 1 + (a.diag ? 0 : j)]) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int s = s0 + q, e = s < S ? erow_s[s] : -1;
+          if (e < 0 || (a.diag ? e != j : e < j)) continue;
+          acc = fmaf(dxn_s[r * S + s], e == j ? fmaxf(v[q], a.diag_min) : v[q], acc);
+        }
+      }
+      put(pep_s, entry_owner(j, C), ((size_t)c * R + r) * S + jslot_s[j], acc);
+    }
+    __syncthreads();
+    // its part of dL/dh_top = d_out W_out^T: a lane a unit of the layer, whole dot products
+    {
+      const int kb = (H + 31) / 32, tasks = kb * (R / RW);
+      float* dst_base = pfa_s + (size_t)(phase & 1) * C * R * UC;
+      for (int task = warp; task < tasks; task += n_warps) {
+        const int k = (task % kb) * 32 + lane, q0 = (task / kb) * RW;
+        if (k >= H) continue;
+        float acc[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) acc[r] = 0.0f;
+#pragma unroll 8
+        for (int m = 0; m < NOP; ++m) {
+          const float wv = w_o[(size_t)m * H + k];
+#pragma unroll
+          for (int r = 0; r < RW; ++r) acc[r] = fmaf(dout_s[(q0 + r) * NOP + m], wv, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RW; ++r) put(dst_base, k / UC, ((size_t)c * R + q0 + r) * UC + k % UC, acc[r]);
+      }
+    }
+    cluster_barrier(C);
+    ++phase;
+    // the owners' d_eps: the C parts in CTA order
+    for (int i = tid; i < R * S; i += nt) {
+      const int r = i / S, s = i % S, e = erow_s[s], b = b0 + r;
+      if (e < 0 || b >= a.B) continue;
+      float acc = 0.0f;
+      for (int q = 0; q < C; ++q) acc += pep_s[((size_t)q * R + r) * S + s];
+      a.d_eps[((size_t)t * a.B + b) * D + e] = acc * a.sqrt_dt;
+    }
+
+    // ---- GRU BPTT, top layer down ---------------------------------------------
+    for (int l = L - 1; l >= 0; --l) {
+      const float* pfa = pfa_s + (size_t)((phase - 1) & 1) * C * R * UC;  // the cotangent into h_l, in parts
+      for (int i = tid; i < R * UC; i += nt) {
+        const int r = i / UC, u = i % UC, b = b0 + r, k = c * UC + u;
+        const float* st = stage_s + r * SR;
+        float dfa = 0.0f;
+        for (int q = 0; q < C; ++q) dfa += pfa[((size_t)q * R + r) * UC + u];
+        const float* act = st + l * 4 * UC;
+        const float rg = act[u], zg = act[UC + u], ng = act[2 * UC + u], n_hh = act[3 * UC + u];
+        const float h_prev = st[o_hp + l * UC + u];
+        const float d_h = dh_s[(r * L + l) * UC + u] + dfa;
+        const float dn = d_h * (1.0f - zg);
+        const float dz = d_h * (h_prev - ng);
+        const float da_n = dn * (1.0f - ng * ng);
+        const float d_r = da_n * n_hh;
+        const float d_gh_n = da_n * rg;
+        const float da_r = d_r * rg * (1.0f - rg);
+        const float da_z = dz * zg * (1.0f - zg);
+        dir_s[i] = d_h * zg;
+        dg_s[i] = make_float4(da_r, da_z, da_n, d_gh_n);
+        if (b < a.B) {
+          const size_t row = (size_t)t * a.B + b;
+          float* out_gh = a.d_gh + ((size_t)l * TB + row) * G;
+          out_gh[k] = da_r; out_gh[H + k] = da_z; out_gh[2 * H + k] = d_gh_n;
+          float* out_gi = l == 0 ? a.d_gc + row * G : a.d_gi + ((size_t)(l - 1) * TB + row) * G;
+          out_gi[k] = da_r; out_gi[H + k] = da_z; out_gi[2 * H + k] = da_n;
+        }
+      }
+      __syncthreads();  // its gate cotangents
+      if (l == 0 && t > 0) prefetch(t - 1);  // layer 0 was the stage's last reader
+
+      // its parts of dh_{t-1} (columns 0..H-1, through W_hh) and of the
+      // cotangent sent down (columns H..: through W_ih, or W_x for layer 0)
+      const int n_cols = H + (l == 0 ? D : H), n_in = l == 0 ? in0 : in1;
+      const float4* wl = layer_w(l);
+      const int cb = (n_cols + 31) / 32, tasks = cb * (R / RW);
+      float* pdh = pdh_s + (size_t)(phase & 1) * C * R * UC;
+      float* pfa_next = pfa_s + (size_t)(phase & 1) * C * R * UC;
+      for (int task = warp; task < tasks; task += n_warps) {
+        const int col = (task % cb) * 32 + lane, q0 = (task / cb) * RW;
+        if (col >= n_cols) continue;
+        const bool hidden = col < H;
+        float acc[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+        for (int u = 0; u < UC; ++u) {
+          const float4 wv = wl[(size_t)u * n_in + col];
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            const float4 g = dg_s[(q0 + r) * UC + u];
+            acc[r] = fmaf(g.x, wv.x, acc[r]);
+            acc[r] = fmaf(g.y, wv.y, acc[r]);
+            acc[r] = fmaf(hidden ? g.w : g.z, wv.z, acc[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const size_t q = (size_t)c * R + q0 + r;
+          if (hidden) {
+            put(pdh, col / UC, q * UC + col % UC, acc[r]);
+          } else if (l > 0) {
+            put(pfa_next, (col - H) / UC, q * UC + (col - H) % UC, acc[r]);
+          } else {
+            put(pdx_s, entry_owner(col - H, C), q * S + jslot_s[col - H], acc[r]);
+          }
+        }
+      }
+      cluster_barrier(C);
+      ++phase;
+      // the owners add the parts: dh_{t-1} = z d_h + d_gh W_hh^T; x_t's cotangent
+      const float* pdh_in = pdh_s + (size_t)((phase - 1) & 1) * C * R * UC;
+      for (int i = tid; i < R * UC; i += nt) {
+        const int r = i / UC, u = i % UC;
+        float acc = 0.0f;
+        for (int q = 0; q < C; ++q) acc += pdh_in[((size_t)q * R + r) * UC + u];
+        dh_s[(r * L + l) * UC + u] = dir_s[i] + acc;
+      }
+      if (l == 0) {
+        for (int i = tid; i < R * S; i += nt) {
+          const int r = i / S, s = i % S;
+          float acc = 0.0f;
+          for (int q = 0; q < C; ++q) acc += pdx_s[((size_t)q * R + r) * S + s];
+          dx_s[i] = dxn_s[i] + acc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * S; i += nt) {
+    const int r = i / S, s = i % S, e = erow_s[s], b = b0 + r;
+    if (e >= 0 && b < a.B) a.d_x0[(size_t)b * D + e] = dx_s[i];
+  }
+}
+
+template <int RW>
+cudaError_t launch_cluster_bptt(const BwdArgs& a, const ClusterBwdPlan& p, int C, int R, int threads, size_t smem,
+                                cudaStream_t stream) {
+  void (*kernel)(BwdArgs, ClusterBwdPlan, int, int) = bptt_cluster_kernel<RW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(kernel, (a.B + R - 1) / R, C, threads, smem, stream, a, p, C, R);
+}
+
+// Clusters of C the card runs at once at the cluster BPTT's most rows.
+inline cudaError_t bwd_cluster_slots(int D, int H, int L, int diag, int C, int max_rows, int n_sms, int* slots) {
+  ClusterBwdPlan c;
+  make_cluster_bwd(D, H, L, diag, C, &c);
+  const int rw = max_rows < 4 ? max_rows : 4;
+  void (*kernel)(BwdArgs, ClusterBwdPlan, int, int) =
+      rw == 1 ? bptt_cluster_kernel<1> : rw == 2 ? bptt_cluster_kernel<2> : bptt_cluster_kernel<4>;
+  int held = 0;
+  cudaError_t err = max_active_clusters(kernel, C, cluster_bwd_threads(max_rows, c.uc),
+                                        cluster_bwd_smem(D, L, C, max_rows, c), &held);
+  if (err != cudaSuccess) return err;
+  *slots = held < n_sms / C ? held : n_sms / C;
+  return *slots > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------- plan
+
+enum BwdPath { kBwdStreaming = 0, kBwdStaged = 1, kBwdCluster = 2 };
+
+struct BwdPlan {
+  int path, cluster, rows, threads;
+  size_t smem, w_floats;
+  Plan block;
+  ClusterBwdPlan clu;
+};
+
+// K2's BPTT launch for a shape, by shape alone unless `path`, `cluster` or
+// `rows` ask for one (-1, 0, 0), by K1's rule (make_fwd_plan): the
+// one-block kernel with its matrices staged where they fit a block; else the
+// cluster kernel at the cluster (2 or 4) that takes the fewest waves; else
+// the one-block kernel streaming them. Mirrored by `plan_backward` in
+// ops/sde_sampler.py.
+inline cudaError_t make_bwd_plan(int D, int H, int L, int n_tril, int diag, int B, int path, int cluster, int rows,
+                                 int n_sms, int optin, BwdPlan* p) {
+  if (L < 1 || B < 1) return cudaErrorInvalidValue;
+  const int block_rows = path != kBwdCluster && rows > 0 ? rows : cluster_rows(B, n_sms, 4);
+  cudaError_t err = make_plan(D, H, L, n_tril, block_rows, optin, &p->block);
+  if (err != cudaSuccess) return err;
+  if (path < 0) {
+    path = p->block.staged ? kBwdStaged : kBwdStreaming;
+    int best = 0;
+    for (int C = 2; path != kBwdStaged && C <= kMaxCluster; C *= 2) {
+      const int max_rows = H % (8 * C) == 0 ? cluster_bwd_max_rows(D, H, L, diag, C, optin) : 0;
+      int slots = 0;
+      if (max_rows > 0 && (err = bwd_cluster_slots(D, H, L, diag, C, max_rows, n_sms, &slots)) != cudaSuccess)
+        return err;
+      const int waves = max_rows > 0 ? cluster_waves(B, slots, max_rows) : 0;
+      if (waves > 0 && (best == 0 || waves < best)) {
+        path = kBwdCluster;
+        cluster = C;
+        best = waves;
+      }
+    }
+  }
+  p->path = path;
+  if (path == kBwdCluster) {
+    if (cluster <= 0)
+      for (cluster = 1; cluster <= kMaxCluster; cluster *= 2)
+        if (H % (8 * cluster) == 0 && cluster_bwd_max_rows(D, H, L, diag, cluster, optin) > 0) break;
+    if (cluster > kMaxCluster || H % (8 * cluster) != 0) return cudaErrorInvalidValue;
+    const int max_rows = cluster_bwd_max_rows(D, H, L, diag, cluster, optin);
+    if (max_rows < 1) return cudaErrorInvalidValue;
+    if (rows <= 0) {
+      int slots = 0;
+      err = bwd_cluster_slots(D, H, L, diag, cluster, max_rows, n_sms, &slots);
+      if (err != cudaSuccess) return err;
+      rows = cluster_rows(B, slots, max_rows);
+    }
+    if (rows > max_rows || rows != round_rows(rows)) return cudaErrorInvalidValue;
+    make_cluster_bwd(D, H, L, diag, cluster, &p->clu);
+    p->clu.rw = rows < 4 ? rows : 4;
+    p->cluster = cluster;
+    p->rows = rows;
+    p->threads = cluster_bwd_threads(rows, p->clu.uc);
+    p->smem = cluster_bwd_smem(D, L, cluster, rows, p->clu);
+    p->w_floats = p->clu.w_floats;
+    return cudaSuccess;
+  }
+  if (path != kBwdStaged && path != kBwdStreaming) return cudaErrorInvalidValue;
+  if (path == kBwdStaged && !p->block.staged) return cudaErrorInvalidValue;
+  if (p->block.smem_streaming > (size_t)optin) return cudaErrorInvalidValue;
+  p->block.staged = path == kBwdStaged ? 1 : 0;
+  p->block.smem = p->block.staged ? p->block.smem_staged : p->block.smem_streaming;
+  p->cluster = 1;
+  p->rows = block_rows;
+  p->threads = p->block.threads;
+  p->smem = p->block.smem;
+  p->w_floats = p->block.w_floats;
+  p->clu = ClusterBwdPlan{};
+  return cudaSuccess;
+}
+
+inline cudaError_t bwd_limits(int* n_sms, int* optin) {
+  cudaError_t err = sm_count(n_sms);
+  return err != cudaSuccess ? err : optin_smem(optin);
+}
+
 }  // namespace sde_sampler
 
-// The bptt_kernel launch for a shape: out = {ld0, ld1, staged, threads, smem
-// bytes, packed floats}. The caller packs w_bptt with these row strides.
-extern "C" int sde_sampler_bwd_plan(int D, int H, int L, int n_tril, int rows, long long* out) {
+// K2's BPTT plan for a shape (make_bwd_plan): out = {path, cluster, rows,
+// threads, smem bytes, packed floats (per CTA on the cluster path), the
+// one-block layout's ld0 and ld1, the cluster layout's uc, nop, slots, rows
+// a warp}. The caller packs w_bptt with these.
+extern "C" int sde_sampler_bwd_plan(int D, int H, int L, int n_tril, int diag, int B, int path, int cluster,
+                                    int rows, long long* out) {
   using namespace sde_sampler;
-  Plan p;
-  cudaError_t err = make_plan(D, H, L, n_tril, rows, &p);
+  int n_sms = 0, optin = 0;
+  cudaError_t err = bwd_limits(&n_sms, &optin);
   if (err != cudaSuccess) return (int)err;
-  out[0] = p.ld0; out[1] = p.ld1; out[2] = p.staged; out[3] = p.threads;
-  out[4] = (long long)p.smem; out[5] = (long long)p.w_floats;
+  BwdPlan p;
+  err = make_bwd_plan(D, H, L, n_tril, diag, B, path, cluster, rows, n_sms, optin, &p);
+  if (err != cudaSuccess) return (int)err;
+  const long long vals[12] = {p.path, p.cluster, p.rows, p.threads, (long long)p.smem, (long long)p.w_floats,
+                              p.block.ld0, p.block.ld1, p.clu.uc, p.clu.nop, p.clu.slots, p.clu.rw};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
   return 0;
 }
 
+// `path`, `cluster`, `rows`: -1, 0, 0 for the plan by shape, or what to ask
+// for (make_bwd_plan). `w_bptt` holds the matrices packed for that plan
+// (the one-block paths), `w_clu` and `layout` the cluster path's.
 extern "C" int sde_sampler_bwd(
     const float* gc, const float* eps, const float* x_in, const float* h_all, const float* raw,
     const float* d_paths, const float* d_means, const float* d_cholv,
     const float* w_x, const float* w_hh0, const float* b_hh0,
     const float* w_ih_st, const float* w_hh_st, const float* b_ih_st, const float* b_hh_st,
     const float* w_bptt, const float* w_outT, const int* tril_rows, const int* tril_cols,
+    const float* w_clu, const int* layout,
     float* acts, float* d_gc, float* d_eps, float* d_x0, float* d_gh, float* d_gi, float* d_out,
-    int B, int T, int D, int H, int L, int n_tril, int rows,
+    int B, int T, int D, int H, int L, int n_tril, int diag, int path, int cluster, int rows,
     float dt, float sqrt_dt, float diag_min, void* stream) {
   using namespace sde_sampler;
   BwdArgs a{gc, eps, x_in, h_all, raw, d_paths, d_means, d_cholv,
             w_x, w_hh0, b_hh0, w_ih_st, w_hh_st, b_ih_st, b_hh_st,
-            w_bptt, w_outT, tril_rows, tril_cols,
+            w_bptt, w_outT, tril_rows, tril_cols, w_clu, layout,
             acts, d_gc, d_eps, d_x0, d_gh, d_gi, d_out,
-            B, T, D, H, L, n_tril, dt, sqrt_dt, diag_min};
+            B, T, D, H, L, n_tril, diag, dt, sqrt_dt, diag_min};
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Plan p;
-  cudaError_t err = make_plan(D, H, L, n_tril, rows, &p);
+  int n_sms = 0, optin = 0;
+  cudaError_t err = bwd_limits(&n_sms, &optin);
+  if (err != cudaSuccess) return (int)err;
+  BwdPlan p;
+  err = make_bwd_plan(D, H, L, n_tril, diag, B, path, cluster, rows, n_sms, optin, &p);
   if (err != cudaSuccess) return (int)err;
 
-  int optin = 0;
-  err = optin_smem(&optin);
-  if (err != cudaSuccess) return (int)err;
   int gate_rows = 32;  // the most rows whose tiles fit the block's shared memory
   while (gate_rows > 8 && gate_smem(gate_rows, D, H) > (size_t)optin) gate_rows /= 2;
   const size_t smem_g = gate_smem(gate_rows, D, H);
@@ -537,10 +1013,18 @@ extern "C" int sde_sampler_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  switch (rows) {
-    case 1: err = launch_bptt<1>(a, p, st); break;
-    case 2: err = launch_bptt<2>(a, p, st); break;
-    case 4: err = launch_bptt<4>(a, p, st); break;
+  if (p.path == kBwdCluster) {
+    switch (p.clu.rw) {
+      case 1: return (int)launch_cluster_bptt<1>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      case 2: return (int)launch_cluster_bptt<2>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      case 4: return (int)launch_cluster_bptt<4>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (p.rows) {
+    case 1: err = launch_bptt<1>(a, p.block, st); break;
+    case 2: err = launch_bptt<2>(a, p.block, st); break;
+    case 4: err = launch_bptt<4>(a, p.block, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;
@@ -562,4 +1046,12 @@ extern "C" int sde_sampler_weight_grad(
   const int n = kt * nj;
   wgrad_sum<<<(n + 255) / 256, 256, 0, s>>>(partial, n_split, ka, kt, nj, dw, db);
   return (int)cudaGetLastError();
+}
+
+// Clusters of C CTAs of bptt_cluster_kernel the card holds at once.
+extern "C" int sde_sampler_bwd_max_clusters(int C, int rw, int threads, long long smem, int* out) {
+  using namespace sde_sampler;
+  void (*kernel)(BwdArgs, ClusterBwdPlan, int, int) =
+      rw == 1 ? bptt_cluster_kernel<1> : rw == 2 ? bptt_cluster_kernel<2> : bptt_cluster_kernel<4>;
+  return (int)max_active_clusters(kernel, C, threads, (size_t)smem, out);
 }

@@ -10,6 +10,13 @@
 //                    tril row/col index tables (no D x D matrix)
 // and writes paths, raw and (for training) h of every layer.
 //
+// Two kernels, chosen by shape in `make_fwd_plan`: `fwd_kernel`, one block
+// per 1, 2 or 4 rows, where the weights fit one block's shared memory (the
+// OU and Lorenz heads) or, streamed from device memory, where nothing else
+// fits (H=256); and `fwd_cluster_kernel` (below), a thread-block cluster of
+// 2 or 4 CTAs holding the weights between them, where they fit a cluster
+// (a 32-dimensional state, H=64 with three layers, H=96).
+//
 // What bounds it on an H100: not the roofline. At B=32, T=2000 it does 4.9
 // GFLOP in 2000 dependent steps, so what counts is the latency of one step:
 // a chain of dependent phases (each layer's gate sums and nonlinearities,
@@ -17,9 +24,9 @@
 // matvecs themselves (the GRU's 3H x (in + H) per layer, read from shared
 // memory) are the smaller part of it at H=64 (PERF.md, section 6).
 //
-// Design: one block per `R` batch rows (1, 2 or 4, chosen by the caller) runs
-// the whole time loop; blocks are independent rows, so no cross-block order
-// is needed.
+// Design of fwd_kernel: one block per `R` batch rows (1, 2 or 4, chosen by
+// the plan) runs the whole time loop; blocks are independent rows, so no
+// cross-block order is needed.
 //  - The weights, packed by the caller (`pack_forward_weights`) unit-major
 //    (per input row, per hidden unit k: the float4 {r, z, n, 0} of columns
 //    k, H+k, 2H+k, so the 8 units of a warp's part read one 128-byte row
@@ -61,8 +68,10 @@ struct FwdArgs {
   const int* tril_cols;  // [n_tril]
   float* paths;          // [T, B, D]
   float* raw;            // [T, B, D + n_tril]
+  float* chol;           // [T, B, n_tril]  the tril values, diagonal clamped (the cluster path)
   float* h_all;          // [T, B, L*H] or nullptr
-  int B, T, D, H, L, n_tril;
+  const int* layout;     // the cluster path: per CTA its output columns and entries (cluster_layout)
+  int B, T, D, H, L, n_tril, diag;
   float dt, sqrt_dt, diag_min;
 };
 
@@ -74,7 +83,7 @@ constexpr int kNarrowThreads = 32 * (64 / kUnitsPerWarp + 1);
 constexpr int kWideThreads = 1024;
 constexpr int kMaxHidden = kWideThreads / 32 * kUnitsPerWarp;  // 256
 
-struct FwdPlan {
+struct BlockFwdPlan {
   int units;        // H rounded up to 8 (the packed row length, in float4)
   int ld_out;       // row stride of the packed W_out^T
   int groups;       // warps that own hidden units
@@ -94,10 +103,11 @@ __host__ __device__ inline size_t layer_offset4(int l, int D, int H, int units) 
   return l == 0 ? 0 : units * (layer_rows(0, D, H) + (size_t)(l - 1) * layer_rows(1, D, H));
 }
 
-// The launch of fwd_kernel for a shape at `rows` batch rows per block, chosen
-// by shape alone: staged when the packed weights and the rest fit the card's
-// opt-in shared memory, unless `staged` is 0.
-inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int rows, int staged, FwdPlan* p) {
+// The launch of fwd_kernel for a shape at `rows` batch rows per block: staged
+// when the packed weights and the rest fit `optin` bytes of shared memory,
+// unless `staged` is 0.
+inline cudaError_t make_block_fwd_plan(int D, int H, int L, int n_tril, int rows, int staged, int optin,
+                                       BlockFwdPlan* p) {
   const size_t NO = (size_t)D + n_tril, LH = (size_t)L * H;
   if (H > kMaxHidden) return cudaErrorInvalidValue;  // one warp per kUnitsPerWarp units
   p->groups = (H + kUnitsPerWarp - 1) / kUnitsPerWarp;
@@ -112,9 +122,6 @@ inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int rows, int 
                       rows * NO + (size_t)p->groups * rows * NO + rows * (size_t)n_tril;
   p->smem_streaming = sizeof(float) * work + sizeof(int) * 2 * n_tril;
   p->smem_staged = p->smem_streaming + sizeof(float) * p->w_floats;
-  int optin = 0;
-  cudaError_t err = optin_smem(&optin);
-  if (err != cudaSuccess) return err;
   const int fits = p->smem_staged <= (size_t)optin ? 1 : 0;
   if (staged == 1 && !fits) return cudaErrorInvalidValue;
   p->staged = staged == 0 ? 0 : fits;
@@ -123,7 +130,7 @@ inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int rows, int 
 }
 
 template <int R, bool kStaged, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) {
+__global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, BlockFwdPlan p) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, G = 3 * a.H, L = a.L, D = a.D, LH = a.L * a.H, NT = a.n_tril;
   const int NO = a.D + a.n_tril, SR = G + a.D, U = p.units;
@@ -311,8 +318,8 @@ __global__ void __launch_bounds__(kMaxThreads) fwd_kernel(FwdArgs a, FwdPlan p) 
 }
 
 template <int R>
-cudaError_t launch_fwd(const FwdArgs& a, const FwdPlan& p, cudaStream_t stream) {
-  void (*kernel)(FwdArgs, FwdPlan);
+cudaError_t launch_fwd(const FwdArgs& a, const BlockFwdPlan& p, cudaStream_t stream) {
+  void (*kernel)(FwdArgs, BlockFwdPlan);
   if (p.threads <= kNarrowThreads) {
     kernel = p.staged ? fwd_kernel<R, true, kNarrowThreads> : fwd_kernel<R, false, kNarrowThreads>;
   } else {
@@ -324,43 +331,456 @@ cudaError_t launch_fwd(const FwdArgs& a, const FwdPlan& p, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- the cluster path
+//
+// fwd_cluster_kernel: a cluster of C CTAs (sde_sampler.cuh, "clusters") runs
+// the time loop for `rows` batch rows; each CTA holds its column slice of
+// every product in shared memory, so no step reads a weight from device
+// memory. Per step:
+//  - each layer: the gate sums of the CTA's units (`gate_sums`, K2's order),
+//    rows spread over its warps (rw rows a warp), the GRU update in
+//    registers; the new h goes into every CTA's h buffer (distributed shared
+//    memory), then one cluster barrier;
+//  - the output projection: every warp of the CTA owns whole dot products,
+//    a lane an output column of the CTA's slice (its W_out^T columns held
+//    k-major), over rw rows; raw is written from there;
+//  - the Euler update of the CTA's state entries, L eps indexed by row
+//    (entry i sums its own i + 1 tril values times eps[0..i], the diagonal
+//    clamped; diag mode its one value); x_{t+1}[i] goes into every CTA,
+//    then one cluster barrier.
+// L + 1 cluster barriers and one block barrier a step. Each row's sums run
+// in the same order whatever the rows a cluster, the warps or the cluster
+// size, so the result depends on none of them (bitwise) and repeats run to
+// run; no atomics. Plain fp32 FMA: at D=32 the output phase and L eps took
+// 0.81 of the one-block kernel's step, the gate products under 0.2 of it
+// (PERF.md, section 6).
+
+struct ClusterFwdPlan {
+  int uc;           // hidden units a CTA owns (H / C)
+  int nop;          // output columns a CTA owns, padded to 32
+  int slots;        // state entries a CTA owns, at most
+  int sr;           // floats of one row of a stage: gates_const (own columns) | eps, padded to 4
+  int rw;           // rows a warp carries (1, 2 or 4)
+  size_t w_floats;  // floats of one CTA's packed weights
+};
+
+__host__ __device__ inline size_t cluster_w_floats(int D, int H, int L, int uc, int nop) {
+  size_t rows = (size_t)(D + H + 2) + (size_t)(L - 1) * (2 * H + 2);
+  return 4 * (size_t)uc * rows + (size_t)H * nop + nop;
+}
+
+inline size_t cluster_fwd_smem(int D, int H, int L, int rows, const ClusterFwdPlan& c) {
+  const size_t floats = c.w_floats + 2 * (size_t)rows * c.sr + 2 * (size_t)rows * L * H + (size_t)rows * D +
+                        (size_t)rows * c.nop;
+  return sizeof(float) * floats + sizeof(int) * ((size_t)3 * c.nop + 2 * c.slots);
+}
+
+inline void make_cluster_fwd(int D, int H, int L, int diag, int C, ClusterFwdPlan* c) {
+  c->uc = H / C;
+  cluster_columns(D, diag, C, &c->nop, &c->slots);
+  c->sr = (3 * c->uc + D + 3) / 4 * 4;
+  c->w_floats = cluster_w_floats(D, H, L, c->uc, c->nop);
+}
+
+// The most rows a cluster of C can carry: shared memory and kClusterThreads.
+inline int cluster_fwd_max_rows(int D, int H, int L, int diag, int C, int optin) {
+  ClusterFwdPlan c;
+  make_cluster_fwd(D, H, L, diag, C, &c);
+  const int groups = c.uc / 8;
+  int best = 0;
+  for (int r = 1; r <= 256; r = r < 4 ? 2 * r : r + 4) {
+    const int rw = r < 4 ? r : 4;
+    if (32 * groups * (r / rw) > kClusterThreads || cluster_fwd_smem(D, H, L, r, c) > (size_t)optin) break;
+    best = r;
+  }
+  return best;
+}
+
+inline bool cluster_shape_ok(int H, int C) { return C >= 1 && C <= kMaxCluster && H % (8 * C) == 0; }
+
+template <int RW>
+__global__ void __launch_bounds__(kClusterThreads, 1) fwd_cluster_kernel(FwdArgs a, ClusterFwdPlan p, int C, int R) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, L = a.L, D = a.D, LH = a.L * a.H, NO = a.D + a.n_tril;
+  const int UC = p.uc, NOP = p.nop, S = p.slots, SR = p.sr;
+  const int c = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
+  float* w_s = smem;                           // this CTA's packed weights
+  float* stage_s = w_s + p.w_floats;           // [2][R][SR]  gates_const (own columns) | eps of a step
+  float* h_s = stage_s + 2 * R * SR;           // [2][R][LH]  h(t-1) and h(t) of every unit, by step parity
+  float* x_s = h_s + 2 * R * LH;               // [R][D]      x_t
+  float* out_s = x_s + R * D;                  // [R][NOP]    this CTA's outputs
+  int* ocol_s = reinterpret_cast<int*>(out_s + R * NOP);  // [NOP] global output column (-1: padding)
+  int* erow_s = ocol_s + NOP;                  // [S] the state entries it owns (-1: none)
+  int* eseg_s = erow_s + S;                    // [S] the local column of each one's mu
+  int* mslot_s = eseg_s + S;                   // [NOP] each column's entry slot
+  int* mj_s = mslot_s + NOP;                   // [NOP] each column's tril column j (-1: mu)
+
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
+  const int part = lane / kUnitsPerWarp;
+  const int groups = UC / kUnitsPerWarp;
+  const int ug = warp % groups, r0 = (warp / groups) * RW;  // this warp's units and rows
+  const int u = ug * kUnitsPerWarp + lane % kUnitsPerWarp;  // this lane's unit, in the CTA
+  const int k = c * UC + u;                                 // and in the layer
+  const int b0 = (blockIdx.x / C) * R;
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  const float* w_oT = w_s + 4 * (size_t)UC * ((D + H + 2) + (size_t)(L - 1) * (2 * H + 2));  // [H][NOP]
+  const float* b_out = w_oT + (size_t)H * NOP;
+
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.w + (size_t)c * p.w_floats);
+    float4* dst = reinterpret_cast<float4*>(w_s);
+    for (size_t i = tid; i < p.w_floats / 4; i += nt) dst[i] = src[i];
+    const int* lay = a.layout + (size_t)c * layout_width(D, NOP, S);
+    for (int i = tid; i < 3 * NOP + 2 * S; i += nt) ocol_s[i] = lay[i];
+  }
+  for (int i = tid; i < 2 * R * LH; i += nt) h_s[i] = 0.0f;
+  for (int i = tid; i < R * D; i += nt) {
+    const int b = b0 + i / D;
+    x_s[i] = b < a.B ? a.x0[(size_t)b * D + i % D] : 0.0f;
+  }
+
+  // gates_const[t] (this CTA's columns) and eps[t] of the cluster's rows into stage t & 1
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < R * SR; i += nt) {
+      const int r = i / SR, e = i % SR, b = b0 + r;
+      const bool valid = b < a.B && e < 3 * UC + D;
+      const size_t row = (size_t)t * a.B + b;
+      const float* src = a.gc;
+      if (valid)
+        src = e < 3 * UC ? a.gc + row * 3 * H + (e / UC) * H + c * UC + e % UC : a.eps + row * D + (e - 3 * UC);
+      cp_async4(stage_s + (size_t)(t & 1) * R * SR + i, src, valid);
+    }
+    cp_async_commit();
+  };
+  // the float4 {r, z, n, 0} of this lane's unit in row i of layer l's block
+  auto weights = [&](int l, int i) {
+    const size_t off = l == 0 ? 0 : (size_t)UC * ((D + H + 2) + (size_t)(l - 1) * (2 * H + 2));
+    return w4[off + (size_t)i * UC + u];
+  };
+  auto hidden_gates0 = [&](const float* h, float (&gh)[RW][3]) {
+    float sum[1][RW][3];
+    const float* const v[1] = {h + r0 * LH};
+    gate_sums<1, RW, 3>(sum, v, LH, H, [&](int i, float (&w)[1][3]) {
+      const float4 q = weights(0, D + i);
+      w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z;
+    });
+    const float4 bh = weights(0, D + H + 1);
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      gh[r][0] = bh.x + sum[0][r][0];
+      gh[r][1] = bh.y + sum[0][r][1];
+      gh[r][2] = bh.z + sum[0][r][2];
+    }
+  };
+
+  prefetch(0);
+  cluster_barrier(C);  // weights, tables, h_{-1} = 0 and x_0 in every CTA before any peer writes
+  float gh0[RW][3];
+  hidden_gates0(h_s, gh0);
+
+  for (int t = 0; t < a.T; ++t) {
+    const float* h_old = h_s + (t & 1) * R * LH;
+    float* h_new = h_s + ((t + 1) & 1) * R * LH;
+    const float* cur = stage_s + (t & 1) * R * SR;
+    cp_async_wait_all();
+    __syncthreads();  // step t's stage is in
+    if (t + 1 < a.T) prefetch(t + 1);  // stage (t + 1) & 1 was last read in step t - 1
+
+    for (int l = 0; l < L; ++l) {
+      float gi[RW][3], gh[RW][3];
+      if (l == 0) {
+        float sum[1][RW][3];
+        const float* const v[1] = {x_s + r0 * D};
+        gate_sums<1, RW, 3>(sum, v, D, D, [&](int i, float (&w)[1][3]) {
+          const float4 q = weights(0, i);
+          w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z;
+        });
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            gi[r][g] = cur[(r0 + r) * SR + g * UC + u] + sum[0][r][g];
+            gh[r][g] = gh0[r][g];
+          }
+      } else {
+        float sum[2][RW][3];
+        const float* const v[2] = {h_new + r0 * LH + (l - 1) * H, h_old + r0 * LH + l * H};
+        gate_sums<2, RW, 3>(sum, v, LH, H, [&](int i, float (&w)[2][3]) {
+          const float4 qi = weights(l, i), qh = weights(l, H + i);
+          w[0][0] = qi.x; w[0][1] = qi.y; w[0][2] = qi.z;
+          w[1][0] = qh.x; w[1][1] = qh.y; w[1][2] = qh.z;
+        });
+        const float4 bi = weights(l, 2 * H), bh = weights(l, 2 * H + 1);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          gi[r][0] = bi.x + sum[0][r][0];
+          gi[r][1] = bi.y + sum[0][r][1];
+          gi[r][2] = bi.z + sum[0][r][2];
+          gh[r][0] = bh.x + sum[1][r][0];
+          gh[r][1] = bh.y + sum[1][r][1];
+          gh[r][2] = bh.z + sum[1][r][2];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float rg, zg, ng;
+        gru_gates(gi[r][0], gi[r][1], gi[r][2], gh[r][0], gh[r][1], gh[r][2], rg, zg, ng);
+        const int idx = (r0 + r) * LH + l * H + k;
+        const float hn = fmaf(zg, h_old[idx], (1.0f - zg) * ng);
+        // the four parts of a unit hold the same bits: part q stores into CTA q
+        if (part < C) {
+          float* dst = C == 1 ? h_new : cg::this_cluster().map_shared_rank(h_new, part);
+          dst[idx] = hn;
+        }
+        const int b = b0 + r0 + r;
+        if (part == kGateParts - 1 && a.h_all != nullptr && b < a.B)
+          a.h_all[((size_t)t * a.B + b) * LH + l * H + k] = hn;
+      }
+      cluster_barrier(C);  // layer l's h(t) in every CTA
+    }
+
+    // the output projection: a lane an output column, whole dot products over h_top(t)
+    const float* h_top = h_new + (L - 1) * H;
+    const int col_blocks = NOP / 32, tasks = col_blocks * (R / RW);
+    for (int task = warp; task < tasks; task += n_warps) {
+      const int m = (task % col_blocks) * 32 + lane, q0 = (task / col_blocks) * RW;
+      float acc[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < H; i += 4) {
+        const float w0 = w_oT[(size_t)i * NOP + m], w1 = w_oT[(size_t)(i + 1) * NOP + m];
+        const float w2 = w_oT[(size_t)(i + 2) * NOP + m], w3 = w_oT[(size_t)(i + 3) * NOP + m];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float4 hv = *reinterpret_cast<const float4*>(h_top + (q0 + r) * LH + i);
+          acc[r] = fmaf(hv.x, w0, acc[r]);
+          acc[r] = fmaf(hv.y, w1, acc[r]);
+          acc[r] = fmaf(hv.z, w2, acc[r]);
+          acc[r] = fmaf(hv.w, w3, acc[r]);
+        }
+      }
+      const int o = ocol_s[m];
+      const bool on_diag = o >= D && mj_s[m] == erow_s[mslot_s[m]];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float v = b_out[m] + acc[r];
+        out_s[(q0 + r) * NOP + m] = v;
+        const int b = b0 + q0 + r;
+        if (o >= 0 && b < a.B) {
+          const size_t row = (size_t)t * a.B + b;
+          a.raw[row * NO + o] = v;
+          if (o >= D) a.chol[row * a.n_tril + (o - D)] = on_diag ? fmaxf(v, a.diag_min) : v;
+        }
+      }
+    }
+    __syncthreads();  // this CTA's outputs
+
+    // x_{t+1} = x_t + mu dt + (L eps) sqrt(dt) for this CTA's entries
+    for (int i = tid; i < R * S; i += nt) {
+      const int r = i / S, s = i % S, e = erow_s[s], b = b0 + r;
+      if (e < 0) continue;
+      const float* o = out_s + r * NOP + eseg_s[s];  // mu_e, then row e's tril values
+      const float* eps = cur + r * SR + 3 * UC;
+      float l_eps;
+      if (a.diag) {
+        l_eps = fmaxf(o[1], a.diag_min) * eps[e];
+      } else {
+        l_eps = 0.0f;
+#pragma unroll 8
+        for (int j = 0; j < e; ++j) l_eps = fmaf(o[1 + j], eps[j], l_eps);
+        l_eps = fmaf(fmaxf(o[1 + e], a.diag_min), eps[e], l_eps);
+      }
+      const float x_next = x_s[r * D + e] + o[0] * a.dt + l_eps * a.sqrt_dt;
+      for (int q = 0; q < C; ++q) {
+        float* dst = C == 1 ? x_s : cg::this_cluster().map_shared_rank(x_s, q);
+        dst[r * D + e] = x_next;
+      }
+      if (b < a.B) a.paths[((size_t)t * a.B + b) * D + e] = x_next;
+    }
+    cluster_barrier(C);  // x_{t+1} in every CTA
+    if (t + 1 < a.T) hidden_gates0(h_new, gh0);  // the next step's layer-0 hidden sums
+  }
+}
+
+template <int RW>
+cudaError_t launch_cluster_fwd(const FwdArgs& a, const ClusterFwdPlan& p, int C, int R, int threads, size_t smem,
+                               cudaStream_t stream) {
+  void (*kernel)(FwdArgs, ClusterFwdPlan, int, int) = fwd_cluster_kernel<RW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(kernel, (a.B + R - 1) / R, C, threads, smem, stream, a, p, C, R);
+}
+
+// Clusters of C the card runs at once at the cluster kernel's most rows
+// (its most shared memory and threads): the slots of the row rule.
+inline cudaError_t fwd_cluster_slots(int D, int H, int L, int diag, int C, int max_rows, int n_sms, int* slots) {
+  ClusterFwdPlan c;
+  make_cluster_fwd(D, H, L, diag, C, &c);
+  const int rw = max_rows < 4 ? max_rows : 4;
+  const int threads = 32 * (c.uc / kUnitsPerWarp) * (max_rows / rw);
+  void (*kernel)(FwdArgs, ClusterFwdPlan, int, int) =
+      rw == 1 ? fwd_cluster_kernel<1> : rw == 2 ? fwd_cluster_kernel<2> : fwd_cluster_kernel<4>;
+  int held = 0;
+  cudaError_t err = max_active_clusters(kernel, C, threads, cluster_fwd_smem(D, H, L, max_rows, c), &held);
+  if (err != cudaSuccess) return err;
+  *slots = held < n_sms / C ? held : n_sms / C;
+  return *slots > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------- plan
+
+enum FwdPath { kStreaming = 0, kStaged = 1, kCluster = 2 };
+
+struct FwdPlan {
+  int path;      // FwdPath
+  int cluster;   // CTAs a cluster (1 on the one-block paths)
+  int rows;      // batch rows a block (the one-block paths) or a cluster
+  int threads;
+  size_t smem;
+  size_t w_floats;  // floats of the packed weights (the cluster path: of each CTA)
+  BlockFwdPlan block;
+  ClusterFwdPlan clu;
+};
+
+// K1's launch for a shape, chosen by shape alone unless `path`, `cluster` or
+// `rows` ask for one (-1, 0, 0: by shape):
+//  - the one-block kernel with its weights staged in shared memory where
+//    they fit one block (at the rows `cluster_rows` gives, at most 4);
+//  - else the cluster kernel at the cluster (2 or 4) whose slices fit in
+//    the fewest waves of clusters (the smaller on a tie), at the rows
+//    `cluster_rows` gives a cluster with the clusters the card runs at once
+//    (`fwd_cluster_slots`);
+//  - else the one-block kernel streaming its weights from device memory.
+// `ops/sde_sampler.py` mirrors it (`plan_forward`).
+inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int diag, int B, int path, int cluster, int rows,
+                                 int n_sms, int optin, FwdPlan* p) {
+  if (H > kMaxHidden || L < 1 || B < 1) return cudaErrorInvalidValue;
+  const int block_rows = path != kCluster && rows > 0 ? rows : cluster_rows(B, n_sms, 4);
+  cudaError_t err = make_block_fwd_plan(D, H, L, n_tril, block_rows, -1, optin, &p->block);
+  if (err != cudaSuccess) return err;
+  if (path < 0) {
+    path = p->block.staged ? kStaged : kStreaming;
+    int best = 0;
+    for (int C = 2; path != kStaged && C <= kMaxCluster; C *= 2) {
+      const int max_rows = cluster_shape_ok(H, C) ? cluster_fwd_max_rows(D, H, L, diag, C, optin) : 0;
+      int slots = 0;
+      if (max_rows > 0 && (err = fwd_cluster_slots(D, H, L, diag, C, max_rows, n_sms, &slots)) != cudaSuccess)
+        return err;
+      const int waves = max_rows > 0 ? cluster_waves(B, slots, max_rows) : 0;
+      if (waves > 0 && (best == 0 || waves < best)) {
+        path = kCluster;
+        cluster = C;
+        best = waves;
+      }
+    }
+  }
+  p->path = path;
+  if (path == kCluster) {
+    if (cluster <= 0)
+      for (cluster = 1; cluster <= kMaxCluster; cluster *= 2)
+        if (cluster_shape_ok(H, cluster) && cluster_fwd_max_rows(D, H, L, diag, cluster, optin) > 0) break;
+    if (!cluster_shape_ok(H, cluster)) return cudaErrorInvalidValue;
+    const int max_rows = cluster_fwd_max_rows(D, H, L, diag, cluster, optin);
+    if (max_rows < 1) return cudaErrorInvalidValue;
+    if (rows <= 0) {
+      int slots = 0;
+      err = fwd_cluster_slots(D, H, L, diag, cluster, max_rows, n_sms, &slots);
+      if (err != cudaSuccess) return err;
+      rows = cluster_rows(B, slots, max_rows);
+    }
+    if (rows > max_rows || rows != round_rows(rows)) return cudaErrorInvalidValue;
+    make_cluster_fwd(D, H, L, diag, cluster, &p->clu);
+    p->clu.rw = rows < 4 ? rows : 4;
+    p->cluster = cluster;
+    p->rows = rows;
+    p->threads = 32 * (p->clu.uc / kUnitsPerWarp) * (rows / p->clu.rw);
+    p->smem = cluster_fwd_smem(D, H, L, rows, p->clu);
+    p->w_floats = p->clu.w_floats;
+    return cudaSuccess;
+  }
+  if (path != kStaged && path != kStreaming) return cudaErrorInvalidValue;
+  if (path == kStaged && !p->block.staged) return cudaErrorInvalidValue;
+  if (p->block.smem_streaming > (size_t)optin) return cudaErrorInvalidValue;  // not even the work buffers fit
+  p->block.staged = path == kStaged ? 1 : 0;
+  p->block.smem = p->block.staged ? p->block.smem_staged : p->block.smem_streaming;
+  p->cluster = 1;
+  p->rows = block_rows;
+  p->threads = p->block.threads;
+  p->smem = p->block.smem;
+  p->w_floats = p->block.w_floats;
+  p->clu = ClusterFwdPlan{};
+  return cudaSuccess;
+}
+
+inline cudaError_t device_limits(int* n_sms, int* optin) {
+  cudaError_t err = sm_count(n_sms);
+  return err != cudaSuccess ? err : optin_smem(optin);
+}
+
 }  // namespace sde_sampler
 
-// The fwd_kernel launch for a shape at `rows` rows per block: out = {staged,
-// threads, smem bytes staged, smem bytes streaming, packed floats, W_out^T
-// row stride, units per packed row}. The caller packs the weights with these.
-extern "C" int sde_sampler_fwd_plan(int D, int H, int L, int n_tril, int rows, long long* out) {
+// K1's plan for a shape (see make_fwd_plan): out = {path, cluster, rows,
+// threads, smem bytes, packed floats (per CTA on the cluster path), the
+// one-block layout's units and W_out^T row stride, the cluster layout's uc,
+// nop, slots, rows a warp}. The caller packs the weights with these.
+extern "C" int sde_sampler_fwd_plan(int D, int H, int L, int n_tril, int diag, int B, int path, int cluster,
+                                    int rows, long long* out) {
   using namespace sde_sampler;
-  FwdPlan p;
-  cudaError_t err = make_fwd_plan(D, H, L, n_tril, rows, -1, &p);
+  int n_sms = 0, optin = 0;
+  cudaError_t err = device_limits(&n_sms, &optin);
   if (err != cudaSuccess) return (int)err;
-  out[0] = p.staged; out[1] = p.threads;
-  out[2] = (long long)p.smem_staged; out[3] = (long long)p.smem_streaming;
-  out[4] = (long long)p.w_floats; out[5] = p.ld_out; out[6] = p.units;
+  FwdPlan p;
+  err = make_fwd_plan(D, H, L, n_tril, diag, B, path, cluster, rows, n_sms, optin, &p);
+  if (err != cudaSuccess) return (int)err;
+  const long long vals[12] = {p.path, p.cluster, p.rows, p.threads, (long long)p.smem, (long long)p.w_floats,
+                              p.block.units, p.block.ld_out, p.clu.uc, p.clu.nop, p.clu.slots, p.clu.rw};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
   return 0;
 }
 
-// `staged`: 1 or 0 to ask for that plan (1 fails where it does not fit), -1
-// for the plan by shape.
+// `path`, `cluster`, `rows`: -1, 0, 0 for the plan by shape, or what to ask
+// for (make_fwd_plan). `w` holds the weights packed for that plan, `layout`
+// the cluster layout (the cluster path only).
 extern "C" int sde_sampler_fwd(
-    const float* x0, const float* gc, const float* eps, const float* w,
+    const float* x0, const float* gc, const float* eps, const float* w, const int* layout,
     const int* tril_rows, const int* tril_cols,
-    float* paths, float* raw, float* h_all,
-    int B, int T, int D, int H, int L, int n_tril, int rows, int staged,
+    float* paths, float* raw, float* chol, float* h_all,
+    int B, int T, int D, int H, int L, int n_tril, int diag, int path, int cluster, int rows,
     float dt, float sqrt_dt, float diag_min, void* stream) {
   using namespace sde_sampler;
-  FwdArgs a{x0, gc, eps, w, tril_rows, tril_cols, paths, raw, h_all,
-            B, T, D, H, L, n_tril, dt, sqrt_dt, diag_min};
+  FwdArgs a{x0, gc, eps, w, tril_rows, tril_cols, paths, raw, chol, h_all, layout,
+            B, T, D, H, L, n_tril, diag, dt, sqrt_dt, diag_min};
   if (B == 0 || T == 0) return 0;
+  int n_sms = 0, optin = 0;
+  cudaError_t err = device_limits(&n_sms, &optin);
+  if (err != cudaSuccess) return (int)err;
   FwdPlan p;
-  cudaError_t err = make_fwd_plan(D, H, L, n_tril, rows, staged, &p);
+  err = make_fwd_plan(D, H, L, n_tril, diag, B, path, cluster, rows, n_sms, optin, &p);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: err = launch_fwd<1>(a, p, st); break;
-    case 2: err = launch_fwd<2>(a, p, st); break;
-    case 4: err = launch_fwd<4>(a, p, st); break;
+  if (p.path == kCluster) {
+    switch (p.clu.rw) {
+      case 1: return (int)launch_cluster_fwd<1>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      case 2: return (int)launch_cluster_fwd<2>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      case 4: return (int)launch_cluster_fwd<4>(a, p.clu, p.cluster, p.rows, p.threads, p.smem, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (p.rows) {
+    case 1: err = launch_fwd<1>(a, p.block, st); break;
+    case 2: err = launch_fwd<2>(a, p.block, st); break;
+    case 4: err = launch_fwd<4>(a, p.block, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// Clusters of C CTAs of fwd_cluster_kernel (rw rows a warp, `threads`,
+// `smem` bytes) the card holds at once: cudaOccupancyMaxActiveClusters.
+extern "C" int sde_sampler_fwd_max_clusters(int C, int rw, int threads, long long smem, int* out) {
+  using namespace sde_sampler;
+  void (*kernel)(FwdArgs, ClusterFwdPlan, int, int) =
+      rw == 1 ? fwd_cluster_kernel<1> : rw == 2 ? fwd_cluster_kernel<2> : fwd_cluster_kernel<4>;
+  return (int)max_active_clusters(kernel, C, threads, (size_t)smem, out);
 }

@@ -45,9 +45,11 @@ class DiffusionTransitionHead:
         config: HeadConfig,
         device: torch.device | None = None,
     ) -> None:
-        """``device`` is where the paths will be sampled: on a CUDA device
-        the kernels run (unless ``sampler="scan"``), and a head wider than
-        they take is refused here rather than at the first step."""
+        """``device`` is where the paths will be sampled. On a CUDA device
+        ``"auto"`` runs the kernels up to the widest head they take
+        (``K1_MAX_HIDDEN``) and the plain loop above it, as the JAX package's
+        ``"auto"`` takes its scan off the TPU; ``"pallas"`` with a wider head
+        is refused here rather than at the first step."""
         if config.num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {config.num_layers}")
         self.state_dim = state_dim
@@ -71,15 +73,20 @@ class DiffusionTransitionHead:
             )
         self.input_dim = state_dim + context_dim + sde_param_dim
         self.sampler = config.sampler
-        on_kernels = (
-            device is not None and torch.device(device).type == "cuda"
-            and self.sampler != "scan" and self.cholesky != "matched"
-        )
-        if on_kernels and self.hidden_dim > K1_MAX_HIDDEN:
+        if (device is not None and self.sampler == "pallas" and self.cholesky != "matched"
+                and torch.device(device).type == "cuda" and self.hidden_dim > K1_MAX_HIDDEN):
             raise ValueError(
                 f"HeadConfig(hidden_dim={self.hidden_dim}): the path-sampler kernels take "
-                f"hidden_dim <= {K1_MAX_HIDDEN}; pass sampler=\"scan\" for the plain loop"
+                f"hidden_dim <= {K1_MAX_HIDDEN}; pass sampler=\"auto\" or \"scan\" for the plain loop"
             )
+
+    def uses_kernels(self, device: torch.device) -> bool:
+        """Whether paths sampled on ``device`` run the CUDA kernels (K1/K2):
+        only on a CUDA device, never for ``"scan"`` or the matched mode, and
+        under ``"auto"`` only up to ``K1_MAX_HIDDEN``."""
+        if torch.device(device).type != "cuda" or self.sampler == "scan" or self.cholesky == "matched":
+            return False
+        return self.sampler == "pallas" or self.hidden_dim <= K1_MAX_HIDDEN
 
     def init(self, gen: torch.Generator) -> dict:
         """GRU weights U(+-1/sqrt(H)) (torch GRU default); out_proj zero-init
@@ -238,7 +245,7 @@ class DiffusionTransitionHead:
                                         sde, state_space)
         sampler = self.sampler
         if sampler == "auto":
-            sampler = "pallas" if x0.is_cuda else "scan"
+            sampler = "pallas" if self.uses_kernels(x0.device) else "scan"
         if sampler == "pallas":
             paths, means, chol_vals = sample_paths(spec, weights, x0, gates_const, noise)
         else:

@@ -11,10 +11,13 @@ PyTorch twin of ``viforsdes_tpu/ops/attention.py``:
 
 Grids of at most 512 tokens take the dense path: the probabilities cast to
 the value dtype for P·V (``_dense_sdpa_remat_impl``). Longer grids take the
-flash kernels (``ops/flash_attention.py``), with RMSNorm and RoPE fused into
-the QK-prep kernel (``ops/qk_prep.py``) when the rotation covers the whole
-head. Both paths keep q, k, v and the value state in ``[B, S, H, D]``: the
-kernels read them through their strides.
+flash kernels (``ops/flash_attention.py``; a head narrower than a kernel
+width runs zero-padded to it), with RMSNorm and RoPE fused into the QK-prep
+kernel (``ops/qk_prep.py``) when the rotation covers the whole head and the
+head is a kernel width (32, 64, 128). A head wider than 128 has no flash
+kernel and takes the dense path at any length, as the JAX package does off
+the TPU. Both paths keep q, k, v and the value state in ``[B, S, H, D]``:
+the kernels read them through their strides.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from torch import Tensor
 
 from viforsdes_tpu_torch.ops.embeddings import RotaryTables, apply_rope_1d
-from viforsdes_tpu_torch.ops.flash_attention import flash_sdpa, use_flash_attention
+from viforsdes_tpu_torch.ops.flash_attention import FLASH_MAX_HEAD_DIM, flash_sdpa, use_flash_attention
 from viforsdes_tpu_torch.ops.initializers import (
     DEFAULT_INIT_POLICY,
     InitPolicy,
@@ -34,7 +37,7 @@ from viforsdes_tpu_torch.ops.initializers import (
     zeros_init,
 )
 from viforsdes_tpu_torch.ops.norms import rms_norm
-from viforsdes_tpu_torch.ops.qk_prep import qk_prep
+from viforsdes_tpu_torch.ops.qk_prep import SUPPORTED_HEAD_DIMS, qk_prep
 
 
 class AttentionConfig(NamedTuple):
@@ -100,8 +103,12 @@ def attention(
     k = k.reshape(b, s, h, d)
     v = v.reshape(b, s, h, d)
 
-    flash = use_flash_attention(s)
-    if flash and cfg.qk_norm and rotary is not None and rotary.cos.shape[-1] * 2 == d:
+    # The one dispatch by head width: a head wider than the flash kernels
+    # take runs dense attention at any length; the fused QK prep (no padding:
+    # RMSNorm divides by the width) runs only at the kernel widths.
+    flash = use_flash_attention(s) and d <= FLASH_MAX_HEAD_DIM
+    fused_prep = cfg.qk_norm and rotary is not None and rotary.cos.shape[-1] * 2 == d
+    if flash and fused_prep and d in SUPPORTED_HEAD_DIMS:
         # one fused pass per tensor over the [B, H, S, D] view
         cos, sin = rotary.cos[:s], rotary.sin[:s]
         q = qk_prep(q.transpose(1, 2), cos, sin, cfg.qk_norm_eps).transpose(1, 2)

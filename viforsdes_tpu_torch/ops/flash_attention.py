@@ -308,22 +308,50 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# The widest head the flash kernels take; ``ops/attention.py`` sends wider
+# heads to its dense path.
+FLASH_MAX_HEAD_DIM = max(SUPPORTED_HEAD_DIMS)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernel width a head of width ``d`` runs at: the narrowest of
+    ``SUPPORTED_HEAD_DIMS`` that holds it."""
+    for width in SUPPORTED_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"flash attention: head_dim {d} is wider than the widest kernel width "
+        f"{FLASH_MAX_HEAD_DIM}; such heads take the dense path"
+    )
+
+
 def flash_sdpa(
     q: Tensor, k: Tensor, v: Tensor, *, kernel_layout: bool = False,
     real_len: int | None = None,
 ) -> Tensor:
     """Non-causal flash attention over ``[B, S, H, D]`` tensors
     (``kernel_layout=True``: ``[B, H, S, D]`` in and out). Tokens from
-    ``real_len`` on form their own segment; the output keeps the caller's S."""
+    ``real_len`` on form their own segment; the output keeps the caller's S.
+    A head width without a kernel (up to ``FLASH_MAX_HEAD_DIM``) runs
+    zero-padded to ``kernel_head_dim(d)``: zero columns add exactly 0 to
+    Q K^T and to P V, the scale stays ``1/sqrt(d)`` of the real width, and
+    the output is sliced back to d (autograd carries the pad and the slice)."""
     if not kernel_layout:
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     s, d = q.shape[2], q.shape[3]
+    sm_scale = 1.0 / math.sqrt(d)
     valid = s if real_len is None else min(int(real_len), s)
-    out = FlashAttention.apply(q, k, v, valid, 1.0 / math.sqrt(d))
+    width = kernel_head_dim(d)
+    if width != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - d)) for t in (q, k, v))
+    out = FlashAttention.apply(q, k, v, valid, sm_scale)
+    if width != d:
+        out = out[..., :d]
     return out if kernel_layout else out.transpose(1, 2)
 
 
 __all__ = [
+    "FLASH_MAX_HEAD_DIM",
     "FLASH_SEQ_THRESHOLD",
     "DEFAULT_MASK_VALUE",
     "FORWARD_LAUNCHES",
@@ -333,6 +361,7 @@ __all__ = [
     "FlashPlan",
     "flash_plan",
     "flash_sdpa",
+    "kernel_head_dim",
     "tma_readable",
     "flash_forward",
     "flash_backward",

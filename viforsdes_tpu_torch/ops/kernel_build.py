@@ -142,10 +142,12 @@ SDE_SAMPLER = Library(
     "sde_sampler",
     ["sde_sampler_fwd.cu", "sde_sampler_bwd.cu"],
     {
-        "sde_sampler_fwd": [_p] * 9 + [_i] * 8 + [_f] * 3 + [_p],
-        "sde_sampler_fwd_plan": [_i] * 5 + [_p],
-        "sde_sampler_bwd": [_p] * 26 + [_i] * 7 + [_f] * 3 + [_p],
-        "sde_sampler_bwd_plan": [_i] * 5 + [_p],
+        "sde_sampler_fwd": [_p] * 11 + [_i] * 10 + [_f] * 3 + [_p],
+        "sde_sampler_fwd_plan": [_i] * 9 + [_p],
+        "sde_sampler_bwd": [_p] * 28 + [_i] * 10 + [_f] * 3 + [_p],
+        "sde_sampler_bwd_plan": [_i] * 9 + [_p],
+        "sde_sampler_fwd_max_clusters": [_i, _i, _i, _ll, _p],
+        "sde_sampler_bwd_max_clusters": [_i, _i, _i, _ll, _p],
         "sde_sampler_weight_grad": [_p, _i, _i, _i, _p, _i, _i, _i, _p, _i, _p, _p, _p],
     },
 )

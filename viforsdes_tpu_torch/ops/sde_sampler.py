@@ -14,6 +14,14 @@ sampler rolls the head's L-layer GRU and the Euler recurrence
   gradient;
 - ``FusedPathSampler``: the ``torch.autograd.Function`` joining the two.
 
+Each kernel runs one of three paths, picked by shape before the launch
+(``make_fwd_plan`` / ``make_bwd_plan`` in the sources, mirrored here by
+``plan_forward`` / ``plan_backward``): one block per 1, 2 or 4 rows with
+the weights staged in its shared memory; a thread-block cluster of 2 or 4
+CTAs that holds the weights between them, each CTA a column slice of every
+product (``cluster_layout``), where they fit no block; or one block per
+rows streaming them from device memory, where they fit no cluster.
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 (``_forward_plain`` / ``_backward_plain``) only for CPU tensors; any other
 device raises. The plain forward is also the head's ``sampler="scan"`` path:
@@ -334,59 +342,261 @@ def _scalars(spec: SamplerSpec) -> tuple[float, float, float]:
     return float(spec.time_step), math.sqrt(spec.time_step), float(spec.diag_min)
 
 
-class ForwardPlan(NamedTuple):
-    """How K1 runs for a shape (``sde_sampler_fwd_plan``): whether the packed
-    weights are staged in shared memory (else read from device memory: the
-    streaming path), threads and shared memory per block for either, and the
-    packed layout (floats, ``W_out^T`` row stride, units per packed row)."""
+# The kernels' paths (``FwdPath`` / ``BwdPath`` in csrc/sde_sampler_fwd.cu and _bwd.cu)
+PATH_STREAMING, PATH_STAGED, PATH_CLUSTER = 0, 1, 2
+PATH_NAMES = {PATH_STREAMING: "streaming", PATH_STAGED: "staged", PATH_CLUSTER: "cluster"}
 
-    staged: bool
+
+class ForwardPlan(NamedTuple):
+    """How K1 runs for a shape (``make_fwd_plan`` in csrc/sde_sampler_fwd.cu,
+    mirrored by ``plan_forward``): the path (the one-block kernel with its
+    weights staged in shared memory or streamed from device memory, or the
+    cluster kernel), CTAs a cluster, batch rows a block or cluster, threads,
+    shared memory, the packed floats (per CTA on the cluster path), and the
+    layout numbers: the one-block kernel's units per packed row and
+    ``W_out^T`` row stride; the cluster kernel's units, output columns,
+    state entries per CTA and rows a warp."""
+
+    path: int
+    cluster: int
+    rows: int
     threads: int
-    smem_staged: int
-    smem_streaming: int
+    smem_bytes: int
     packed_floats: int
-    ld_out: int
     units: int
+    ld_out: int
+    uc: int
+    nop: int
+    slots: int
+    rw: int
 
     @property
-    def smem_bytes(self) -> int:
-        return self.smem_staged if self.staged else self.smem_streaming
+    def staged(self) -> bool:
+        """Whether the weights sit in shared memory (staged or cluster)."""
+        return self.path != PATH_STREAMING
 
 
 # The widest head K1 takes: 32 warps of 8 hidden units fill a block's 1024
 # threads (``kMaxHidden`` in csrc/sde_sampler_fwd.cu).
 K1_MAX_HIDDEN = 256
+MAX_CLUSTER = 4      # ``kMaxCluster`` in csrc/sde_sampler.cuh
+UNITS_PER_WARP = 8   # hidden units a warp owns (``kUnitsPerWarp``)
+CLUSTER_THREADS = 768  # threads of a cluster kernel's CTA, at most (``kClusterThreads``)
+
+# Batch rows per block of the one-block kernels (K1 and K2's BPTT).
+ROWS_PER_BLOCK = (1, 2, 4)
+
+
+def _round_rows(rows: int) -> int:
+    """1, 2, 4 or the next multiple of 4 (``round_rows``)."""
+    if rows <= 2:
+        return max(1, rows)
+    return 4 if rows <= 4 else -(-rows // 4) * 4
+
+
+def cluster_waves(batch: int, per_wave: int, max_rows: int) -> int:
+    """Waves of clusters a batch takes at ``max_rows`` rows a cluster when
+    the card runs ``per_wave`` clusters at once."""
+    return -(-batch // (max(1, per_wave) * max_rows))
+
+
+def cluster_rows(batch: int, per_wave: int, max_rows: int) -> int:
+    """Rows a cluster (a lone block on the one-block paths) carries, by the
+    row rule of both kernels (``cluster_rows`` in csrc/sde_sampler.cuh): the
+    fewest that keep the clusters within one wave of the ``per_wave``
+    clusters the card runs at once (``n_sms`` lone blocks; for clusters, at
+    most ``n_sms // cluster`` and fewer where a GPC's multiprocessors do not
+    divide into clusters: ``cluster_slots``); where ``max_rows`` (what
+    shared memory and the threads allow) cannot, the fewest waves, the rows
+    spread evenly over them. One serial step takes longer the more rows it
+    carries, so the fewest win as long as the clusters fit in a wave. Rows
+    are 1, 2, 4 or a multiple of 4."""
+    per_wave = max(1, per_wave)
+    waves = cluster_waves(batch, per_wave, max_rows)
+    return min(max_rows, _round_rows(-(-batch // (per_wave * waves))))
+
+
+def entry_owner(i: int, cluster: int) -> int:
+    """The CTA of a cluster that owns state entry ``i``: dealt out in a snake
+    so that the tril rows, ``i + 1`` values long, balance."""
+    q = i % (2 * cluster)
+    return q if q < cluster else 2 * cluster - 1 - q
+
+
+def _cta_entries(d: int, cholesky: str, cluster: int, c: int) -> tuple[list[int], list[int], list[int]]:
+    """CTA ``c``'s state entries, the local column of each one's mu, and the
+    global output column of each of its local columns (entry by entry: mu_i,
+    then row i of the tril values)."""
+    entries, segs, cols = [], [], []
+    for i in range(d):
+        if entry_owner(i, cluster) != c:
+            continue
+        entries.append(i)
+        segs.append(len(cols))
+        cols.append(i)
+        if cholesky == "diag":
+            cols.append(d + i)
+        else:
+            cols.extend(d + i * (i + 1) // 2 + j for j in range(i + 1))
+    return entries, segs, cols
+
+
+def cluster_columns(d: int, cholesky: str, cluster: int) -> tuple[int, int]:
+    """``(nop, slots)``: the widest CTA's output columns padded to 32, and
+    the most state entries a CTA owns (``cluster_columns``)."""
+    per = [_cta_entries(d, cholesky, cluster, c) for c in range(cluster)]
+    nop = -(-max(len(p[2]) for p in per) // 32) * 32
+    return nop, max(len(p[0]) for p in per)
+
+
+def layout_width(d: int, nop: int, slots: int) -> int:
+    """Ints of one CTA's row of ``cluster_layout``."""
+    return 3 * nop + 2 * slots + d
+
+
+def cluster_layout(d: int, cholesky: str, cluster: int) -> np.ndarray:
+    """``[cluster, 3 * nop + 2 * slots + d]`` int32, per CTA: the global
+    output column of each local column (-1 past its own); its state entries
+    (-1 past its own); the local column of each one's mu; for each local
+    column the slot of its entry and its tril column j (-1 for mu and past
+    its own); and, the same in every row, the slot of each state entry in
+    the CTA that owns it."""
+    nop, slots = cluster_columns(d, cholesky, cluster)
+    out = np.full((cluster, layout_width(d, nop, slots)), -1, dtype=np.int32)
+    jslot = np.zeros(d, dtype=np.int32)
+    for c in range(cluster):
+        entries, segs, cols = _cta_entries(d, cholesky, cluster, c)
+        out[c, : len(cols)] = cols
+        out[c, nop : nop + len(entries)] = entries
+        out[c, nop + slots : nop + slots + len(segs)] = segs
+        mslot = out[c, nop + 2 * slots : 2 * nop + 2 * slots]
+        mj = out[c, 2 * nop + 2 * slots : 3 * nop + 2 * slots]
+        for s, (e, seg) in enumerate(zip(entries, segs)):
+            jslot[e] = s
+            n_vals = 1 if cholesky == "diag" else e + 1
+            mslot[seg : seg + 1 + n_vals] = s
+            mj[seg + 1 : seg + 1 + n_vals] = [e] if cholesky == "diag" else range(e + 1)
+    out[:, 3 * nop + 2 * slots :] = jslot
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def forward_plan(spec: SamplerSpec, rows: int, device_index: int) -> ForwardPlan:
-    """K1's launch for ``spec`` at ``rows`` batch rows per block, chosen by
-    shape alone: staged when the packed weights fit the card's opt-in shared
-    memory. K1 takes at most 32 warps of 8 hidden units (H <= 256)."""
-    out = (ctypes.c_longlong * 7)()
+def _layout_tensor(d: int, cholesky: str, cluster: int, device: torch.device) -> Tensor:
+    return torch.as_tensor(cluster_layout(d, cholesky, cluster), device=device)
+
+
+def _packed_ld(n: int) -> int:
+    """``packed_ld`` in csrc/sde_sampler.cuh."""
+    return 8 if n <= 8 else ((n - 8 + 31) // 32) * 32 + 8
+
+
+def _block_forward_smem(spec: SamplerSpec, rows: int) -> tuple[int, int, int, int, int]:
+    """The one-block kernel's ``(threads, smem staged, smem streaming,
+    packed floats, W_out^T row stride)`` at ``rows`` (``make_block_fwd_plan``)."""
+    d, h, n_layers, nt, no = spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, spec.n_out
+    groups = -(-h // UNITS_PER_WARP)
+    warps = groups + 1 if 32 * (groups + 1) <= 1024 else groups
+    units = -(-h // 8) * 8
+    ld_out = _packed_ld(units)
+    layer_rows = (d + h + 2) + (n_layers - 1) * (2 * h + 2)
+    out4 = (no * ld_out + no + 3) // 4
+    floats = 4 * (units * layer_rows + out4)
+    work = (2 * rows * (3 * h + d) + 2 * rows * n_layers * h + rows * d + rows * no
+            + groups * rows * no + rows * nt)
+    streaming = 4 * work + 4 * 2 * nt
+    return 32 * warps, streaming + 4 * floats, streaming, floats, ld_out
+
+
+def _cluster_forward_smem(spec: SamplerSpec, cluster: int, rows: int) -> tuple[int, int, int, int, int]:
+    """The cluster kernel's ``(smem, packed floats per CTA, uc, nop, slots)``
+    for a cluster of ``cluster`` CTAs at ``rows`` (``cluster_fwd_smem``)."""
+    d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
+    uc = h // cluster
+    nop, slots = cluster_columns(d, spec.cholesky, cluster)
+    sr = -(-(3 * uc + d) // 4) * 4
+    floats = 4 * uc * ((d + h + 2) + (n_layers - 1) * (2 * h + 2)) + h * nop + nop
+    smem = 4 * (floats + 2 * rows * sr + 2 * rows * n_layers * h + rows * d + rows * nop) + 4 * (3 * nop + 2 * slots)
+    return smem, floats, uc, nop, slots
+
+
+def _cluster_forward_max_rows(spec: SamplerSpec, cluster: int, optin: int) -> int:
+    """The most rows a cluster carries: its shared memory within ``optin``
+    and at most ``CLUSTER_THREADS`` threads (``cluster_fwd_max_rows``)."""
+    best, r = 0, 1
+    groups = spec.hidden_dim // cluster // UNITS_PER_WARP
+    while r <= 256:
+        rw = min(r, 4)
+        if 32 * groups * (r // rw) > CLUSTER_THREADS or _cluster_forward_smem(spec, cluster, r)[0] > optin:
+            break
+        best = r
+        r = 2 * r if r < 4 else r + 4
+    return best
+
+
+def _cluster_ok(h: int, cluster: int) -> bool:
+    return 1 <= cluster <= MAX_CLUSTER and h % (UNITS_PER_WARP * cluster) == 0
+
+
+def _per_wave(cluster: int, n_sms: int, slots: dict[int, int] | None) -> int:
+    held = n_sms // cluster if slots is None else slots[cluster]
+    return min(n_sms // cluster, held)
+
+
+def plan_forward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
+                 slots: dict[int, int] | None = None) -> ForwardPlan:
+    """K1's plan for a shape, computed here as ``make_fwd_plan`` computes it
+    on the card (``n_sms`` multiprocessors, ``optin`` bytes of shared memory
+    a block, ``slots``: the clusters of each size the card runs at once at
+    their most rows, ``cluster_slots``; ``n_sms // cluster`` where not
+    given): the one-block kernel with its weights staged where they fit a
+    block at the rows ``cluster_rows`` gives (at most 4); else the cluster
+    kernel at the cluster, 2 or 4, whose slices fit in the fewest waves of
+    clusters (the smaller on a tie), at the rows ``cluster_rows`` gives a
+    cluster; else the one-block kernel streaming its weights."""
+    h = spec.hidden_dim
+    if h > K1_MAX_HIDDEN:
+        raise ValueError(f"K1 takes hidden_dim <= {K1_MAX_HIDDEN}, got {h}")
+    block_rows = cluster_rows(batch, n_sms, ROWS_PER_BLOCK[-1])
+    threads, staged, streaming, floats, ld_out = _block_forward_smem(spec, block_rows)
+    units = -(-h // 8) * 8
+    if staged <= optin:
+        return ForwardPlan(PATH_STAGED, 1, block_rows, threads, staged, floats, units, ld_out, 0, 0, 0, 0)
+    fits = {c: _cluster_forward_max_rows(spec, c, optin) for c in (2, 4) if _cluster_ok(h, c)}
+    fits = {c: m for c, m in fits.items() if m > 0}
+    if not fits:
+        if streaming > optin:
+            raise ValueError(f"K1 has no plan for {spec} at {batch} rows: even its streaming plan's "
+                             f"{streaming} bytes of shared memory exceed {optin}")
+        return ForwardPlan(PATH_STREAMING, 1, block_rows, threads, streaming, floats, units, ld_out, 0, 0, 0, 0)
+    cluster = min(fits, key=lambda c: (cluster_waves(batch, _per_wave(c, n_sms, slots), fits[c]), c))
+    rows = cluster_rows(batch, _per_wave(cluster, n_sms, slots), fits[cluster])
+    smem, cfloats, uc, nop, n_slots = _cluster_forward_smem(spec, cluster, rows)
+    rw = min(rows, 4)
+    return ForwardPlan(PATH_CLUSTER, cluster, rows, 32 * (uc // UNITS_PER_WARP) * (rows // rw), smem,
+                       cfloats, units, ld_out, uc, nop, n_slots, rw)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(spec: SamplerSpec, batch: int, device_index: int, path: int = -1, cluster: int = 0,
+                 rows: int = 0) -> ForwardPlan:
+    """K1's launch for ``spec`` at ``batch`` rows, as the card's
+    ``make_fwd_plan`` computes it: by shape alone, or on the ``path``,
+    ``cluster`` and ``rows`` asked for (-1, 0, 0: by shape)."""
+    out = (ctypes.c_longlong * 12)()
     with torch.cuda.device(device_index):
         err = SDE_SAMPLER.get().sde_sampler_fwd_plan(
-            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, rows, ctypes.addressof(out))
-    raise_on(err, f"sde_sampler_fwd_plan (H={spec.hidden_dim}; K1 takes H <= {K1_MAX_HIDDEN})")
-    staged, threads, smem_staged, smem_streaming, floats, ld_out, units = out
-    return ForwardPlan(bool(staged), threads, smem_staged, smem_streaming, floats, ld_out, units)
+            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, int(spec.cholesky == "diag"),
+            batch, path, cluster, rows, ctypes.addressof(out))
+    raise_on(err, f"sde_sampler_fwd_plan (H={spec.hidden_dim}, path {path}, cluster {cluster}, rows {rows}; "
+                  f"K1 takes H <= {K1_MAX_HIDDEN})")
+    return ForwardPlan(*(int(v) for v in out))
 
 
-def pack_forward_weights(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
-    """K1's weights, unit-major: per layer a ``[in + H + 2, units, 4]`` block
-    whose row i holds, for hidden unit k, the float4 ``{r, z, n, 0}`` of
-    columns ``k, H+k, 2H+k`` of ``W_in`` (rows ``0..in-1``; ``W_x`` for layer
-    0), then of ``W_hh`` (H rows), then of the input bias (zero for layer 0)
-    and the hidden bias; zero past unit H. Then ``W_out^T`` with row stride
-    ``plan.ld_out`` and ``b_out``, padded to whole float4s."""
+def _pack_block_forward(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
     h, n_out = spec.hidden_dim, spec.n_out
     blocks = []
     for layer in range(spec.num_layers):
-        w_in = w.w_x if layer == 0 else w.w_ih_st[layer - 1]
-        w_hh = w.w_hh0 if layer == 0 else w.w_hh_st[layer - 1]
-        b_in = torch.zeros_like(w.b_hh0) if layer == 0 else w.b_ih_st[layer - 1]
-        b_hh = w.b_hh0 if layer == 0 else w.b_hh_st[layer - 1]
-        rows = torch.cat([w_in, w_hh, b_in[None], b_hh[None]])  # [in + H + 2, 3H]
+        rows = _gate_rows(w, layer)  # [in + H + 2, 3H]
         block = rows.new_zeros((rows.shape[0], plan.units, 4))
         block[:, :h, :3] = rows.reshape(-1, 3, h).transpose(1, 2)
         blocks.append(block.reshape(-1))
@@ -394,19 +604,98 @@ def pack_forward_weights(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan
     out[:, :h] = w.w_out.t()
     blocks.append(out.reshape(-1))
     blocks.append(torch.cat([w.b_out, w.b_out.new_zeros(-n_out % 4)]))
-    packed = torch.cat(blocks)
-    if packed.numel() != plan.packed_floats:
-        raise ValueError(f"packed K1 weights: {packed.numel()} floats, the plan wants {plan.packed_floats}")
+    return torch.cat(blocks)
+
+
+def _gate_rows(w: SamplerWeights, layer: int) -> Tensor:
+    """Layer ``layer``'s gate matrices as rows: ``W_in`` (``W_x`` for layer
+    0), ``W_hh``, the input bias (zero for layer 0) and the hidden bias,
+    ``[in + H + 2, 3H]``."""
+    w_in = w.w_x if layer == 0 else w.w_ih_st[layer - 1]
+    w_hh = w.w_hh0 if layer == 0 else w.w_hh_st[layer - 1]
+    b_in = torch.zeros_like(w.b_hh0) if layer == 0 else w.b_ih_st[layer - 1]
+    b_hh = w.b_hh0 if layer == 0 else w.b_hh_st[layer - 1]
+    return torch.cat([w_in, w_hh, b_in[None], b_hh[None]])
+
+
+def _pack_cluster_forward(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
+    h, uc = spec.hidden_dim, plan.uc
+    layout = cluster_layout(spec.state_dim, spec.cholesky, plan.cluster)
+    w_out = torch.cat([w.w_out, w.w_out.new_zeros((h, 1))], dim=1)  # column -1: zeros
+    b_out = torch.cat([w.b_out, w.b_out.new_zeros(1)])
+    ctas = []
+    for c in range(plan.cluster):
+        blocks = []
+        for layer in range(spec.num_layers):
+            rows = _gate_rows(w, layer).reshape(-1, 3, h)[:, :, c * uc : (c + 1) * uc]
+            block = rows.new_zeros((rows.shape[0], uc, 4))
+            block[:, :, :3] = rows.transpose(1, 2)
+            blocks.append(block.reshape(-1))
+        cols = torch.as_tensor(layout[c, : plan.nop], dtype=torch.long, device=w.w_out.device)
+        blocks.append(w_out[:, cols].reshape(-1))  # [H, nop], column -1 reads the zeros
+        blocks.append(b_out[cols])
+        ctas.append(torch.cat(blocks))
+    return torch.cat(ctas)
+
+
+def _source(w: SamplerWeights) -> Tensor:
+    """Every weight flattened, in ``SamplerWeights`` order, after one zero."""
+    return torch.cat([w.w_x.new_zeros(1), *(t.reshape(-1) for t in w)])
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(pack, spec: SamplerSpec, plan, device: torch.device) -> Tensor:
+    """Where each float of ``pack(spec, w, plan)`` comes from in
+    ``_source(w)`` (0: a zero): the packing, which only moves values, run
+    once on weights that hold their own positions. A packing on the card is
+    then one gather, with no host work and no copy from the host."""
+    d, h, l1, g = spec.state_dim, spec.hidden_dim, spec.num_layers - 1, 3 * spec.hidden_dim
+    shapes = [(d, g), (h, g), (g,), (l1, h, g), (l1, h, g), (l1, g), (l1, g), (h, spec.n_out), (spec.n_out,)]
+    ids, start = [], 1
+    for shape in shapes:
+        n = int(np.prod(shape))
+        ids.append(torch.arange(start, start + n, dtype=torch.float64).reshape(shape))
+        start += n
+    return pack(spec, SamplerWeights(*ids), plan).long().to(device)
+
+
+def pack_forward_weights(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
+    """K1's weights as ``plan`` lays them out (``_pack_forward``), by one
+    cached gather."""
+    return _source(w)[_pack_index(_pack_forward, spec, plan, w.w_x.device)]
+
+
+def _pack_forward(spec: SamplerSpec, w: SamplerWeights, plan: ForwardPlan) -> Tensor:
+    """K1's weights as ``plan`` lays them out.
+
+    One-block paths, unit-major: per layer a ``[in + H + 2, units, 4]``
+    block whose row i holds, for hidden unit k, the float4 ``{r, z, n, 0}``
+    of columns ``k, H+k, 2H+k`` of ``W_in`` (rows ``0..in-1``; ``W_x`` for
+    layer 0), then of ``W_hh`` (H rows), then of the input bias (zero for
+    layer 0) and the hidden bias; zero past unit H. Then ``W_out^T`` with
+    row stride ``plan.ld_out`` and ``b_out``, padded to whole float4s.
+
+    Cluster path, per CTA c of the cluster in turn: the same layer blocks
+    for its units ``c*uc .. (c+1)*uc - 1`` only, then ``W_out`` restricted
+    to its output columns (``cluster_layout``) as ``[H, nop]``, k-major, and
+    those columns of ``b_out``; zero in the padding columns."""
+    if plan.path == PATH_CLUSTER:
+        packed = _pack_cluster_forward(spec, w, plan)
+        want = plan.cluster * plan.packed_floats
+    else:
+        packed = _pack_block_forward(spec, w, plan)
+        want = plan.packed_floats
+    if packed.numel() != want:
+        raise ValueError(f"packed K1 weights: {packed.numel()} floats, the plan wants {want}")
     return packed
 
 
 def _forward_cuda(
     spec: SamplerSpec, w: SamplerWeights, x0: Tensor, gc: Tensor, eps: Tensor,
-    *, save_h: bool, rows: int | None = None, staged: bool | None = None,
+    *, save_h: bool, path: int = -1, cluster: int = 0, rows: int = 0,
 ) -> SamplerOutputs:
-    """K1 at ``rows`` batch rows per block (default: ``rows_per_block``) on
-    the plan by shape; ``staged`` asks for the staged or the streaming plan
-    (staged raises where the weights do not fit)."""
+    """K1 on the plan by shape, or on the ``path``, ``cluster`` and ``rows``
+    asked for (``forward_plan``)."""
     n_steps, batch = gc.shape[:2]
     d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
     dev = x0.device
@@ -414,31 +703,31 @@ def _forward_cuda(
     _check("gates_const", gc, (n_steps, batch, 3 * h), dev)
     _check("eps", eps, (n_steps, batch, d), dev)
     _check_weights(spec, w, dev)
-    if rows is None:
-        rows = rows_per_block(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if rows not in ROWS_PER_BLOCK:
-        raise ValueError(f"rows per K1 block must be one of {ROWS_PER_BLOCK}, got {rows}")
-    plan = forward_plan(spec, rows, dev.index)
+    plan = forward_plan(spec, batch, dev.index, path, cluster, rows)
     packed = pack_forward_weights(spec, w, plan)
+    on_cluster = plan.path == PATH_CLUSTER
+    layout = _layout_tensor(d, spec.cholesky, plan.cluster, dev) if on_cluster else None
     rows_t, cols_t = _int_tables(spec, dev)
     paths = torch.empty((n_steps, batch, d), dtype=torch.float32, device=dev)
     raw = torch.empty((n_steps, batch, spec.n_out), dtype=torch.float32, device=dev)
+    chol_vals = torch.empty((n_steps, batch, spec.n_tril), dtype=torch.float32, device=dev) if on_cluster else None
     h_all = (
         torch.empty((n_steps, batch, n_layers * h), dtype=torch.float32, device=dev)
         if save_h else None
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = SDE_SAMPLER.get().sde_sampler_fwd(
-        x0.data_ptr(), gc.data_ptr(), eps.data_ptr(), packed.data_ptr(),
-        rows_t.data_ptr(), cols_t.data_ptr(), paths.data_ptr(), raw.data_ptr(), _ptr(h_all),
-        batch, n_steps, d, h, n_layers, spec.n_tril, rows, -1 if staged is None else int(staged),
-        *_scalars(spec), stream,
+        x0.data_ptr(), gc.data_ptr(), eps.data_ptr(), packed.data_ptr(), _ptr(layout),
+        rows_t.data_ptr(), cols_t.data_ptr(), paths.data_ptr(), raw.data_ptr(), _ptr(chol_vals), _ptr(h_all),
+        batch, n_steps, d, h, n_layers, spec.n_tril, int(spec.cholesky == "diag"),
+        plan.path, plan.cluster, plan.rows, *_scalars(spec), stream,
     )
     raise_on(err, "sde_sampler_fwd")
     FORWARD_LAUNCHES.count += 1
-    _, _, diag = _tables(spec, dev)
-    raw_tril = raw[..., d:]
-    chol_vals = torch.where(diag, torch.clamp(raw_tril, min=spec.diag_min), raw_tril)
+    if not on_cluster:  # the cluster kernel writes them; the one-block kernel's lone output warp does not
+        _, _, diag = _tables(spec, dev)
+        raw_tril = raw[..., d:]
+        chol_vals = torch.where(diag, torch.clamp(raw_tril, min=spec.diag_min), raw_tril)
     return SamplerOutputs(paths=paths, raw=raw, chol_vals=chol_vals, h_all=h_all)
 
 
@@ -465,66 +754,218 @@ def _weight_grad(
 
 
 class BackwardPlan(NamedTuple):
-    """How K2's BPTT kernel runs for a shape (``sde_sampler_bwd_plan``): the
-    row strides of the packed matrices, whether they are staged in shared
-    memory (else read from device memory: the streaming path), threads and
-    shared memory per block."""
+    """How K2's BPTT runs for a shape (``make_bwd_plan`` in
+    csrc/sde_sampler_bwd.cu, mirrored by ``plan_backward``): the path, CTAs
+    a cluster, rows a block or cluster, threads, shared memory, the packed
+    floats (per CTA on the cluster path), the one-block kernel's row strides
+    of its packed matrices and the cluster kernel's units, output columns,
+    state entries per CTA and rows a warp."""
 
-    ld0: int
-    ld1: int
-    staged: bool
+    path: int
+    cluster: int
+    rows: int
     threads: int
     smem_bytes: int
     packed_floats: int
+    ld0: int
+    ld1: int
+    uc: int
+    nop: int
+    slots: int
+    rw: int
+
+    @property
+    def staged(self) -> bool:
+        """Whether the matrices sit in shared memory (staged or cluster)."""
+        return self.path != PATH_STREAMING
+
+
+def _block_backward_smem(spec: SamplerSpec, rows: int) -> tuple[int, int, int, int, int, int]:
+    """The one-block BPTT kernel's ``(threads, smem staged, smem streaming,
+    packed floats, ld0, ld1)`` at ``rows`` (``make_plan``)."""
+    d, h, n_layers, nt, no = spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, spec.n_out
+    g, lh = 3 * h, n_layers * h
+    ld0, ld1 = _packed_ld(h + d), _packed_ld(2 * h)
+    floats = g * (ld0 + (n_layers - 1) * ld1)
+    stage_row = 5 * n_layers * h + 4 * d + 2 * nt
+    work = 2 * rows * stage_row + rows * (lh + 2 * g + 2 * h + no + d)
+    base = 4 * work + 4 * 2 * nt
+    cols = h + (h if n_layers > 1 else d)
+    n = 32 * -(-cols // 8)
+    per_row = max(d + nt + d, h)
+    if n < rows * per_row:
+        n = -(-(rows * per_row) // 32) * 32
+    return min(1024, max(64, n)), base + 4 * (floats + no * h), base, floats, ld0, ld1
+
+
+def _cluster_backward_smem(spec: SamplerSpec, cluster: int, rows: int) -> tuple[int, int, int, int, int]:
+    """The cluster BPTT kernel's ``(smem, packed floats per CTA, uc, nop,
+    slots)`` (``cluster_bwd_smem``)."""
+    d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
+    uc = h // cluster
+    nop, slots = cluster_columns(d, spec.cholesky, cluster)
+    sr = -(-(5 * n_layers * uc + slots + d) // 4) * 4
+    floats = 4 * uc * ((h + d) + (n_layers - 1) * 2 * h) + nop * h
+    r = rows
+    work = (floats + r * sr + r * n_layers * uc + 2 * r * slots + r * nop + r * uc * 4 + r * uc
+            + 4 * cluster * r * uc + 2 * cluster * r * slots)
+    return 4 * work + 4 * layout_width(d, nop, slots), floats, uc, nop, slots
+
+
+def _cluster_backward_max_rows(spec: SamplerSpec, cluster: int, optin: int) -> int:
+    """The most rows a cluster carries in K2 (``cluster_bwd_max_rows``)."""
+    best, r = 0, 1
+    while r <= 256 and _cluster_backward_smem(spec, cluster, r)[0] <= optin:
+        best = r
+        r = 2 * r if r < 4 else r + 4
+    return best
+
+
+def plan_backward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
+                  slots: dict[int, int] | None = None) -> BackwardPlan:
+    """K2's BPTT plan, computed here as ``make_bwd_plan`` computes it on the
+    card, by K1's rule (``plan_forward``): staged in one block where the
+    matrices fit; else clusters of 2 or 4 in the fewest waves; else
+    streaming."""
+    h = spec.hidden_dim
+    block_rows = cluster_rows(batch, n_sms, ROWS_PER_BLOCK[-1])
+    threads, staged, streaming, floats, ld0, ld1 = _block_backward_smem(spec, block_rows)
+    if staged <= optin:
+        return BackwardPlan(PATH_STAGED, 1, block_rows, threads, staged, floats, ld0, ld1, 0, 0, 0, 0)
+    fits = {c: _cluster_backward_max_rows(spec, c, optin) for c in (2, 4) if _cluster_ok(h, c)}
+    fits = {c: m for c, m in fits.items() if m > 0}
+    if not fits:
+        if streaming > optin:
+            raise ValueError(f"K2 has no plan for {spec} at {batch} rows")
+        return BackwardPlan(PATH_STREAMING, 1, block_rows, threads, streaming, floats, ld0, ld1, 0, 0, 0, 0)
+    cluster = min(fits, key=lambda c: (cluster_waves(batch, _per_wave(c, n_sms, slots), fits[c]), c))
+    rows = cluster_rows(batch, _per_wave(cluster, n_sms, slots), fits[cluster])
+    smem, cfloats, uc, nop, n_slots = _cluster_backward_smem(spec, cluster, rows)
+    threads = _cluster_backward_threads(rows, uc)
+    return BackwardPlan(PATH_CLUSTER, cluster, rows, threads, smem, cfloats, ld0, ld1, uc, nop, n_slots,
+                        min(rows, 4))
+
+
+def _cluster_backward_threads(rows: int, uc: int) -> int:
+    """``cluster_bwd_threads``."""
+    return min(CLUSTER_THREADS, max(128, -(-(rows * uc) // 32) * 32))
+
+
+def cluster_slots(spec: SamplerSpec, device_index: int) -> dict[str, dict[int, int]]:
+    """The clusters of 2 and 4 CTAs of each cluster kernel that the card runs
+    at once at its most rows (``fwd_cluster_slots`` / ``bwd_cluster_slots``,
+    from ``cudaOccupancyMaxActiveClusters``): the ``slots`` of
+    ``plan_forward`` (``"fwd"``) and ``plan_backward`` (``"bwd"``)."""
+    props = torch.cuda.get_device_properties(device_index)
+    n_sms, optin = props.multi_processor_count, props.shared_memory_per_block_optin
+    lib = SDE_SAMPLER.get()
+    out: dict[str, dict[int, int]] = {"fwd": {}, "bwd": {}}
+    for cluster in (2, 4):
+        if not _cluster_ok(spec.hidden_dim, cluster):
+            continue
+        rows = _cluster_forward_max_rows(spec, cluster, optin)
+        if rows:
+            uc = spec.hidden_dim // cluster
+            threads = 32 * (uc // UNITS_PER_WARP) * (rows // min(rows, 4))
+            out["fwd"][cluster] = _held(lib.sde_sampler_fwd_max_clusters, cluster, min(rows, 4), threads,
+                                        _cluster_forward_smem(spec, cluster, rows)[0], device_index)
+        rows = _cluster_backward_max_rows(spec, cluster, optin)
+        if rows:
+            threads = _cluster_backward_threads(rows, spec.hidden_dim // cluster)
+            out["bwd"][cluster] = _held(lib.sde_sampler_bwd_max_clusters, cluster, min(rows, 4), threads,
+                                        _cluster_backward_smem(spec, cluster, rows)[0], device_index)
+    return {k: {c: min(n, n_sms // c) for c, n in v.items()} for k, v in out.items()}
+
+
+def _held(query, cluster: int, rw: int, threads: int, smem: int, device_index: int) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        raise_on(query(cluster, rw, threads, smem, ctypes.addressof(n)), "cudaOccupancyMaxActiveClusters")
+    return n.value
 
 
 @functools.lru_cache(maxsize=None)
-def backward_plan(spec: SamplerSpec, rows: int, device_index: int) -> BackwardPlan:
-    """K2's launch for ``spec`` at ``rows`` batch rows per block, chosen by
-    shape alone: staged when the packed matrices fit the card's opt-in shared
-    memory."""
-    out = (ctypes.c_longlong * 6)()
+def backward_plan(spec: SamplerSpec, batch: int, device_index: int, path: int = -1, cluster: int = 0,
+                  rows: int = 0) -> BackwardPlan:
+    """K2's BPTT launch for ``spec`` at ``batch`` rows as the card's
+    ``make_bwd_plan`` computes it: by shape alone, or on the ``path``,
+    ``cluster`` and ``rows`` asked for (-1, 0, 0: by shape)."""
+    out = (ctypes.c_longlong * 12)()
     with torch.cuda.device(device_index):
         err = SDE_SAMPLER.get().sde_sampler_bwd_plan(
-            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, rows, ctypes.addressof(out))
-    raise_on(err, "sde_sampler_bwd_plan")
-    ld0, ld1, staged, threads, smem, floats = out
-    return BackwardPlan(ld0, ld1, bool(staged), threads, smem, floats)
+            spec.state_dim, spec.hidden_dim, spec.num_layers, spec.n_tril, int(spec.cholesky == "diag"),
+            batch, path, cluster, rows, ctypes.addressof(out))
+    raise_on(err, f"sde_sampler_bwd_plan (path {path}, cluster {cluster}, rows {rows})")
+    return BackwardPlan(*(int(v) for v in out))
 
 
-# Batch rows per K1 and K2 block that the kernels are built for. One serial
-# step takes longer the more rows a block carries (PERF.md, section 6), so the
-# fewest rows win as long as the blocks fit in one wave.
-ROWS_PER_BLOCK = (1, 2, 4)
-
-
-def rows_per_block(batch: int, n_sms: int) -> int:
-    """Rows per K1 and per K2 block: the fewest that keep the blocks within
-    one wave on ``n_sms`` multiprocessors."""
-    for rows in ROWS_PER_BLOCK:
-        if -(-batch // rows) <= n_sms:
-            return rows
-    return ROWS_PER_BLOCK[-1]
-
-
-def pack_bptt_weights(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
-    """The matrices of K2's transposed matvecs, one ``[3H, ld]`` block per
-    layer with ``W_hh^T`` in columns ``0..H-1`` and the matrix that sends the
-    cotangent down beside it (``W_x^T`` for layer 0, ``W_ih^T`` above), zero
-    in the padding columns, flattened in layer order."""
+def _pack_block_bptt(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
     h = spec.hidden_dim
     blocks = []
     for layer in range(spec.num_layers):
         ld = plan.ld0 if layer == 0 else plan.ld1
-        w_hh = w.w_hh0 if layer == 0 else w.w_hh_st[layer - 1]
-        w_down = w.w_x if layer == 0 else w.w_ih_st[layer - 1]
+        w_hh, w_down = _bptt_rows(w, layer)
         block = w_hh.new_zeros((3 * h, ld))
         block[:, :h] = w_hh.t()
         block[:, h : h + w_down.shape[0]] = w_down.t()
         blocks.append(block.reshape(-1))
-    packed = torch.cat(blocks)
-    if packed.numel() != plan.packed_floats:
-        raise ValueError(f"packed K2 weights: {packed.numel()} floats, the plan wants {plan.packed_floats}")
+    return torch.cat(blocks)
+
+
+def _bptt_rows(w: SamplerWeights, layer: int) -> tuple[Tensor, Tensor]:
+    """Layer ``layer``'s ``W_hh`` and the matrix that sends its cotangent
+    down (``W_x`` for layer 0, ``W_ih`` above)."""
+    if layer == 0:
+        return w.w_hh0, w.w_x
+    return w.w_hh_st[layer - 1], w.w_ih_st[layer - 1]
+
+
+def _pack_cluster_bptt(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
+    h, uc = spec.hidden_dim, plan.uc
+    layout = cluster_layout(spec.state_dim, spec.cholesky, plan.cluster)
+    w_out = torch.cat([w.w_out, w.w_out.new_zeros((h, 1))], dim=1)  # column -1: zeros
+    ctas = []
+    for c in range(plan.cluster):
+        blocks = []
+        for layer in range(spec.num_layers):
+            rows = torch.cat(_bptt_rows(w, layer))  # [H + in, 3H]
+            cols = rows.reshape(-1, 3, h)[:, :, c * uc : (c + 1) * uc]  # [H + in, 3, uc]
+            block = rows.new_zeros((uc, rows.shape[0], 4))
+            block[:, :, :3] = cols.permute(2, 0, 1)
+            blocks.append(block.reshape(-1))
+        ocol = torch.as_tensor(layout[c, : plan.nop], dtype=torch.long, device=w.w_out.device)
+        blocks.append(w_out[:, ocol].t().reshape(-1))  # [nop, H]
+        ctas.append(torch.cat(blocks))
+    return torch.cat(ctas)
+
+
+def pack_bptt_weights(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
+    """K2's BPTT matrices as ``plan`` lays them out (``_pack_bptt``), by one
+    cached gather."""
+    return _source(w)[_pack_index(_pack_bptt, spec, plan, w.w_x.device)]
+
+
+def _pack_bptt(spec: SamplerSpec, w: SamplerWeights, plan: BackwardPlan) -> Tensor:
+    """The matrices of K2's transposed products as ``plan`` lays them out.
+
+    One-block paths: one ``[3H, ld]`` block per layer with ``W_hh^T`` in
+    columns ``0..H-1`` and the matrix that sends the cotangent down beside
+    it (``W_x^T`` for layer 0, ``W_ih^T`` above), zero in the padding
+    columns, flattened in layer order.
+
+    Cluster path, per CTA c in turn: per layer a ``[uc, H + in, 4]`` block
+    whose row u holds, for each row i of ``W_hh`` and then of ``W_x`` /
+    ``W_ih``, the float4 ``{r, z, n, 0}`` of unit ``c*uc + u``'s gate
+    columns; then ``W_out``'s columns of its outputs (``cluster_layout``)
+    as ``[nop, H]`` rows, zero in the padding rows."""
+    if plan.path == PATH_CLUSTER:
+        packed = _pack_cluster_bptt(spec, w, plan)
+        want = plan.cluster * plan.packed_floats
+    else:
+        packed = _pack_block_bptt(spec, w, plan)
+        want = plan.packed_floats
+    if packed.numel() != want:
+        raise ValueError(f"packed K2 weights: {packed.numel()} floats, the plan wants {want}")
     return packed
 
 
@@ -538,8 +979,15 @@ def _backward_cuda(
     d_paths: Tensor,
     d_means: Tensor,
     d_cholv: Tensor,
-    rows: int | None = None,
+    path: int = -1,
+    cluster: int = 0,
+    rows: int = 0,
+    acts: Tensor | None = None,
 ) -> SamplerGrads:
+    """K2 on the BPTT plan by shape, or on the ``path``, ``cluster`` and
+    ``rows`` asked for (``backward_plan``). ``acts`` may hold the gate
+    pass's scratch (``[L, T, B, 4H]``: r, z, n and n_hh of every step and
+    layer), for a caller that reads the gates back."""
     n_steps, batch = gc.shape[:2]
     d, h, n_layers = spec.state_dim, spec.hidden_dim, spec.num_layers
     g3 = 3 * h
@@ -556,23 +1004,23 @@ def _backward_cuda(
     _check("d_means", d_means, (n_steps, batch, d), dev)
     _check("d_cholv", d_cholv, (n_steps, batch, spec.n_tril), dev)
     _check_weights(spec, w, dev)
-    if rows is None:
-        rows = rows_per_block(batch, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if rows not in ROWS_PER_BLOCK:
-        raise ValueError(f"rows per K2 block must be one of {ROWS_PER_BLOCK}, got {rows}")
     lib = SDE_SAMPLER.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows_t, cols_t = _int_tables(spec, dev)
-    plan = backward_plan(spec, rows, dev.index)
+    plan = backward_plan(spec, batch, dev.index, path, cluster, rows)
+    on_cluster = plan.path == PATH_CLUSTER
 
     x_in = torch.cat([x0[None], fwd.paths[:-1]])
-    w_bptt = pack_bptt_weights(spec, w, plan)
+    packed = pack_bptt_weights(spec, w, plan)
     w_outT = w.w_out.t().contiguous()
+    layout = _layout_tensor(d, spec.cholesky, plan.cluster, dev) if on_cluster else None
 
     def empty(*shape: int) -> Tensor:
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    acts = empty(n_layers, n_steps, batch, 4 * h)  # r, z, n, n_hh of every step and layer
+    if acts is None:
+        acts = empty(n_layers, n_steps, batch, 4 * h)  # r, z, n, n_hh of every step and layer
+    _check("acts", acts, (n_layers, n_steps, batch, 4 * h), dev)
     d_gc = empty(n_steps, batch, g3)
     d_eps = empty(n_steps, batch, d)
     d_x0 = empty(batch, d)
@@ -582,11 +1030,12 @@ def _backward_cuda(
     err = lib.sde_sampler_bwd(
         gc.data_ptr(), eps.data_ptr(), x_in.data_ptr(), fwd.h_all.data_ptr(),
         fwd.raw.data_ptr(), d_paths.data_ptr(), d_means.data_ptr(), d_cholv.data_ptr(),
-        *(_ptr(t) for t in w[:7]), w_bptt.data_ptr(), w_outT.data_ptr(),
-        rows_t.data_ptr(), cols_t.data_ptr(), acts.data_ptr(),
-        d_gc.data_ptr(), d_eps.data_ptr(), d_x0.data_ptr(), d_gh.data_ptr(),
+        *(_ptr(t) for t in w[:7]), None if on_cluster else packed.data_ptr(), w_outT.data_ptr(),
+        rows_t.data_ptr(), cols_t.data_ptr(), packed.data_ptr() if on_cluster else None, _ptr(layout),
+        acts.data_ptr(), d_gc.data_ptr(), d_eps.data_ptr(), d_x0.data_ptr(), d_gh.data_ptr(),
         _ptr(d_gi), d_out.data_ptr(),
-        batch, n_steps, d, h, n_layers, spec.n_tril, rows, *_scalars(spec), stream,
+        batch, n_steps, d, h, n_layers, spec.n_tril, int(spec.cholesky == "diag"),
+        plan.path, plan.cluster, plan.rows, *_scalars(spec), stream,
     )
     raise_on(err, "sde_sampler_bwd")
 
@@ -716,7 +1165,15 @@ __all__ = [
     "forward_plan",
     "pack_bptt_weights",
     "pack_forward_weights",
-    "rows_per_block",
+    "cluster_rows",
+    "cluster_slots",
+    "cluster_waves",
+    "cluster_layout",
+    "plan_backward",
+    "plan_forward",
+    "PATH_CLUSTER",
+    "PATH_STAGED",
+    "PATH_STREAMING",
     "prep_weights",
     "sampler_forward",
     "sampler_backward",
