@@ -31,13 +31,14 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
-   plain forward, at the Lorenz shape, ragged shapes, the edges of the bf16
-   tiles (S = 1, 64, 65, 127, 128, 129, 257: K5-K7 run wgmma on 128-row
-   blocks), ``real_len`` masks (inside a 128-row block, inside a tile at
-   head_dim 128, inside K7's 64-row kv tile at head_dim 32), head_dim 32 and
-   128 and strided q/k/v; K5's, K6's and K7's launch plans as the kernels
-   report them against ``flash_plan``; K6+K7 twice on the Lorenz inputs,
-   bitwise equal;
+   plain forward, in bf16 and in fp32 (K6/K7 in 3xTF32), at the Lorenz
+   shape, ragged shapes, the edges of the tiles (S = 1, 64, 65, 127, 128,
+   129, 257: 128-row blocks, 64 at fp32 head_dim 128), ``real_len`` masks
+   (inside a 128-row block, inside a streamed tile, inside K7's 64-row kv
+   tile at head_dim 32), head_dim 32 and 128 and strided q/k/v; K5's bf16
+   and K6's and K7's bf16 and fp32 launch plans as the kernels report them
+   against ``flash_plan``; K6+K7 twice on the Lorenz inputs, bitwise equal,
+   in bf16 and fp32;
 7. every kernel's time beside its plain version's (CUDA events) at the
    shapes of the main paths, its bound (the larger of its operations over the
    card's peak rate for their type and its bytes over the memory rate) and,
@@ -45,7 +46,9 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    (``scaled_dot_product_attention`` pinned to its flash backend) on the same
    inputs as the yardstick, K5-K7 and the library timed in turns (each turn
    runs them in order, then in reverse) before any other attention timing;
-   K5-K7 also with fp32 inputs (yardstick: the memory-efficient backend);
+   K5-K7 also with fp32 inputs in as many turns (yardstick: the
+   memory-efficient backend), K6/K7 beside both their 3xTF32 bound (495
+   TFLOP/s of TF32) and the bound of the same products in fp32 FMA;
    K1/K2 also in microseconds per serial step,
    both at 1, 2 and 4 rows per block, K1 on its streaming plan and both on
    the cluster path at a cluster of one (OU, Lorenz), and both beside their
@@ -92,14 +95,20 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    OU bench configuration, 5 steps and ``summary(64)``: finite ELBOs, no
    path-sampler kernel launched (the mode runs the head's loop, as in the JAX
    package), and ``sampler="pallas"`` refused;
-13. ``[repairs]``: ``attention()`` at S=2001 in bf16 at head widths 16 and
+13. ``[fp32]``: the Lorenz-63 configuration with
+   ``TrainingConfig(compute_dtype="float32")`` as ``[graph]`` runs it (5
+   steps a graph over 15, against one step a call from the same seed):
+   finite ELBOs, both arms' ms/step and peak memory, the graph's pool, K5-K7
+   ms a step in one profiled replay, and the launches of both ``train()``
+   runs (K6/K7 in 3xTF32; it fails if K5, K6 or K7 ran no time);
+14. ``[repairs]``: ``attention()`` at S=2001 in bf16 at head widths 16 and
    48 (K5-K7 zero-padded to 32 and 64) and 256 (the dense path), forward
    and backward against the plain path within the bf16 bars, K3-K7
    counted; one Lorenz ``infer()`` step with ``EncoderConfig(hidden_dim=64,
    num_heads=4)``; then ``[head320]``: ``HeadConfig(hidden_dim=320)`` under
    ``sampler="auto"`` trains 2 OU steps on the card through the plain loop,
    and ``sampler="pallas"`` at that width is refused;
-14. ``[dp]``: data-parallel training (``parallel/``) at
+15. ``[dp]``: data-parallel training (``parallel/``) at
    ``examples/highdim_ou_dp.py``'s configuration (d=32, batch 4096, SiT
    256 x 4 x 8, GRU 64 x 2), cut to 10 steps in graphs of 5 and to 4
    microbatches a step: ``infer(mesh=make_data_mesh())`` on a world of one
@@ -117,7 +126,8 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
-each kernel's launches in the Lorenz path, its largest error against the
+each kernel's launches in the Lorenz path (K5-K7 with fp32 inputs: in
+``[fp32]``), its largest error against the
 plain version, and its time beside the plain version's, its bound and the
 library call's at the Lorenz shapes (``library_ms`` null where no single
 PyTorch call computes the function); the last line is
@@ -171,9 +181,11 @@ BF16_ELBO = 2e-2
 # this run's times.
 MMA_SYNC_MS = {"K5": 0.883, "K6": 1.547, "K7": 1.074}
 
-# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 on the
-# tensor cores, fp32 outside them, and device memory.
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 and
+# TF32 on the tensor cores, fp32 outside them, and device memory. The fp32
+# K6/K7 run each product as three TF32 products (3xTF32): their bound counts
+# 3x the products at the TF32 rate.
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -681,36 +693,65 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     # real_len inside K7's second 64-row kv tile (100 = 64 + 36) at head_dim
     # 32, S one row past four such tiles
     ((2, 4, 257, 32), "bfloat16", 100, False),
+    # the 3xTF32 kernels (fp32 K6/K7): the Lorenz shape; 128-row blocks
+    # streaming 16-row tiles at head_dim 64 (32 at 32; 64-row blocks and
+    # 8-row tiles at 128): one row, one and two 64-row warpgroups and a row
+    # past each, a row short of a block, two blocks and a row
+    ((LZ_BATCH, 4, 2001, 64), "float32", None, True),
+    ((2, 4, 1, 64), "float32", None, False),
+    ((2, 4, 64, 64), "float32", None, False),
+    ((2, 4, 65, 64), "float32", None, False),
+    ((2, 4, 127, 64), "float32", None, False),
+    ((2, 4, 128, 64), "float32", None, False),
+    ((2, 4, 129, 64), "float32", None, True),
+    ((2, 4, 257, 64), "float32", None, True),
+    # real_len splitting a 128-row block (300 = 2 * 128 + 44), and inside a
+    # 16-row q/kv tile (250 = 15 * 16 + 10), at head_dim 64
+    ((2, 4, 700, 64), "float32", 300, True),
+    ((2, 4, 333, 64), "float32", 250, True),
+    # head_dim 32 (32-row tiles; 100 inside the fourth) and 128 (64-row
+    # blocks; 100 = 12 * 8 + 4 inside an 8-row tile and a block)
+    ((2, 4, 257, 32), "float32", 100, True),
+    ((2, 4, 65, 128), "float32", None, False),
+    ((2, 4, 129, 128), "float32", None, True),
+    ((2, 4, 200, 128), "float32", 100, True),
 ]
+LORENZ_SHAPE = (LZ_BATCH, 4, 2001, 64)
 
 
 def phase_flash_plan(torch) -> None:
-    """K5's, K6's and K7's bf16 launch plans as the kernels report them equal
-    ``flash_plan``, the Python mirror the CPU tests check."""
+    """K5's bf16, and K6's and K7's bf16 and fp32 launch plans as the kernels
+    report them equal ``flash_plan``, the Python mirror the CPU tests check."""
     import ctypes
 
     from viforsdes_tpu_torch.ops import flash_attention as fa
     from viforsdes_tpu_torch.ops.kernel_build import ATTENTION, raise_on
 
     lib = ATTENTION.get()
-    for kernel, fn in (("fwd", lib.flash_attn_fwd_plan),
-                       ("dkv", lambda d, out: lib.flash_attn_bwd_plan(d, 0, out)),
-                       ("dq", lambda d, out: lib.flash_attn_bwd_plan(d, 1, out))):
+    plans = [("fwd", torch.bfloat16, lib.flash_attn_fwd_plan)]
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = int(dtype == torch.bfloat16)
+        plans.append(("dkv", dtype, lambda d, out, bf16=bf16: lib.flash_attn_bwd_plan(d, 0, bf16, out)))
+        plans.append(("dq", dtype, lambda d, out, bf16=bf16: lib.flash_attn_bwd_plan(d, 1, bf16, out)))
+    for kernel, dtype, fn in plans:
         for d in (32, 64, 128):
             out = (ctypes.c_longlong * 5)()
-            raise_on(fn(d, out), f"flash plan {kernel} D={d}")
-            got, want = fa.FlashPlan(*out), fa.flash_plan(kernel, d)
+            raise_on(fn(d, out), f"flash plan {kernel} D={d} {dtype}")
+            got, want = fa.FlashPlan(*out), fa.flash_plan(kernel, d, dtype)
             if got != want:
-                raise AssertionError(f"flash plan {kernel} D={d}: kernel {got}, flash_plan {want}")
-            log(f"[K5-K7] plan {kernel} D={d}: {got}")
+                raise AssertionError(f"flash plan {kernel} D={d} {dtype}: kernel {got}, flash_plan {want}")
+            log(f"[K5-K7] plan {kernel} D={d} {dtype}: {got}")
 
 
-def phase_flash(torch) -> tuple[float, float, float]:
+def phase_flash(torch) -> dict:
+    """``FLASH_CASES``: the largest error of K5, K6 and K7 by input dtype
+    ("K6" for bf16, "K6 fp32" for the 3xTF32 kernels)."""
     from viforsdes_tpu_torch.ops import flash_attention as fa
 
-    worst = [0.0, 0.0, 0.0]  # K5, K6 (dk, dv), K7 (dq)
+    worst = {f"K{n}{sfx}": 0.0 for n in (5, 6, 7) for sfx in ("", " fp32")}
     for i, (shape, dname, real_len, strided) in enumerate(FLASH_CASES):
         dtype = getattr(torch, dname)
+        sfx = " fp32" if dtype == torch.float32 else ""
         b, h, s, d = shape
         valid = s if real_len is None else real_len
         scale = 1.0 / math.sqrt(d)
@@ -728,26 +769,29 @@ def phase_flash(torch) -> tuple[float, float, float]:
         grads_auto = torch.autograd.grad(o_auto, ins, grad_outputs=do.float())
         torch.cuda.synchronize()
         tag = f"{shape} {dname} real_len={real_len}{' strided' if strided else ''}"
-        worst[0] = max(worst[0], check_close(o, o_ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_FWD, f"K5 o {tag}"))
+        e5 = check_close(o, o_ref, dtype, (FWD_RTOL, FWD_ATOL), BF16_FWD, f"K5 o {tag}")
+        worst["K5" + sfx] = max(worst["K5" + sfx], e5)
         max_err(lse, lse_ref, FWD_RTOL, FWD_ATOL, f"K5 lse {tag}", atol_floor=0.0)
         # at S = 1 the softmax over one key gives q and k no gradient: both
-        # sides are zero up to rounding, held to the bar times 1e-3
-        floor = 1e-3 if s == 1 else 0.0
+        # sides are zero up to rounding, held to the bar times 1e-3 (bf16) or
+        # to the fp32 atol itself (dp - di cancels two sums of D products of
+        # order one, whose rounding the fp32 rtol of a zero cannot absorb)
+        floor = (1e-3 if dtype == torch.bfloat16 else 1.0) if s == 1 else 0.0
         for name, a, r, r_auto in zip(("dq", "dk", "dv"), grads, grads_ref, grads_auto):
             e = check_close(a, r, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD, f"K6/K7 {name} {tag}", floor)
             e_auto = check_close(a, r_auto, dtype, (BWD_RTOL, BWD_ATOL), BF16_BWD,
                                  f"K6/K7 {name} vs autograd {tag}", floor)
-            j = 2 if name == "dq" else 1
-            worst[j] = max(worst[j], e, e_auto)
-        log(f"[K5-K7] {tag}: max |err| so far K5 {worst[0]:.3e} K6 {worst[1]:.3e} K7 {worst[2]:.3e}")
-        if i == 0:  # the Lorenz shape: a second K6+K7 gives the same bits
+            key = ("K7" if name == "dq" else "K6") + sfx
+            worst[key] = max(worst[key], e, e_auto)
+        log(f"[K5-K7] {tag}: max |err| so far " + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        if shape == LORENZ_SHAPE:  # a second K6+K7 gives the same bits
             again = fa.flash_backward(q, k, v, o, lse, do, valid, scale)
             torch.cuda.synchronize()
             for name, a, r in zip(("dq", "dk", "dv"), grads, again):
                 if not torch.equal(a, r):
                     raise AssertionError(f"K6/K7 {name} {tag}: two runs differ")
             log(f"[K6/K7] {tag}: two runs bitwise equal in dq, dk, dv")
-    return tuple(worst)
+    return worst
 
 
 def phase_kernel_times(torch) -> dict:
@@ -944,8 +988,8 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     """K3-K7 and their plain versions at the Lorenz shape [32, 4, 2001, 64]
     bf16, q/k/v strided views of one projection as on the main path, beside
     their bounds and PyTorch's flash attention; K5-K7 again with fp32 inputs
-    (the FMA kernels) beside their plain versions and PyTorch's
-    memory-efficient attention.
+    (K5 in fp32 FMA, K6/K7 in 3xTF32) beside their plain versions and
+    PyTorch's memory-efficient attention.
     The plain and the library backward serve K6 and K7 together, so both
     carry their time."""
     from viforsdes_tpu_torch.ops import flash_attention as fa
@@ -973,7 +1017,8 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         f"{FLASH_TURNS} turns (in order, then reversed), ms: "
         + "; ".join(f"{name} {turn_stats(w)}" for name, w in windows.items()))
 
-    # the same attention with fp32 inputs: the FMA kernels
+    # the same attention with fp32 inputs: K5's FMA kernel, the 3xTF32 K6
+    # and K7, and the library's memory-efficient attention, in as many turns
     q32, k32, v32 = lorenz_heads(torch, shape, torch.float32, 80)
     do32 = do.float()
     o32, lse32 = fa._forward_cuda(q32, k32, v32, s, scale)
@@ -983,7 +1028,9 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         "flash_bwd_dkv_fp32_ms": lambda: fa._backward_launch(operands32, 0),
         "flash_bwd_dq_fp32_ms": lambda: fa._backward_launch(operands32, 1),
         **library_arms(torch, q32, k32, v32, do32, "_fp32", "EFFICIENT_ATTENTION"),
-    }, 3, 2)
+    }, 5, FLASH_TURNS)
+    log(f"[turns] attention at [32, 4, 2001, 64] fp32, {2 * FLASH_TURNS} windows of 5 launches each in "
+        f"{FLASH_TURNS} turns, ms: " + "; ".join(f"{name} {turn_stats(w)}" for name, w in windows32.items()))
     t = {name: statistics.median(w) for name, w in {**windows, **windows32}.items()}
     t["flash_fwd_plain_ms"] = cuda_ms(torch, lambda: fa._forward_plain(q, k, v, s, scale), 5)
     t["flash_bwd_plain_ms"] = cuda_ms(torch, lambda: fa._backward_plain(q, k, v, o, lse, do, s, scale), 5)
@@ -1019,12 +1066,24 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         "K6": bound(4 * product, nbytes(q, k, v, do, lse_di, dk, dv), "bf16"),
         "K7": bound(3 * product, nbytes(q, k, v, do, lse_di, dq), "bf16"),
         "K5 fp32": bound(2 * product, nbytes(q32, k32, v32, o32, lse32), "fp32"),
-        "K6 fp32": bound(4 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dk32, dv32), "fp32"),
-        "K7 fp32": bound(3 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dq32), "fp32"),
+        "K6 fp32": bound(3 * 4 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dk32, dv32), "tf32"),
+        "K7 fp32": bound(3 * 3 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dq32), "tf32"),
     }
+    # the same products once in fp32 FMA, outside the tensor cores
+    fma = {"K6 fp32": bound(4 * product, bounds["K6 fp32"]["bytes"], "fp32"),
+           "K7 fp32": bound(3 * product, bounds["K7 fp32"]["bytes"], "fp32")}
     t["flash_fwd_tflops"] = 2 * product / t["flash_fwd_ms"] / 1e9
     t["flash_bwd_tflops"] = 7 * product / t["flash_bwd_ms"] / 1e9
-    log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: the FMA kernels): " + json.dumps(t))
+    log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: K5 FMA, K6/K7 3xTF32): " + json.dumps(t))
+    for k, key in (("K6 fp32", "flash_bwd_dkv_fp32_ms"), ("K7 fp32", "flash_bwd_dq_fp32_ms")):
+        log(f"[fp32 bounds] {k}: {t[key]:.4f} ms; 3xTF32 bound {bounds[k]['bound_ms']:.4f} ms "
+            f"({bounds[k]['bound_ms'] / t[key]:.4f} of it), FMA bound {fma[k]['bound_ms']:.4f} ms "
+            f"({fma[k]['bound_ms'] / t[key]:.4f})")
+    k6k7_32 = t["flash_bwd_dkv_fp32_ms"] + t["flash_bwd_dq_fp32_ms"]
+    log(f"[library] fp32: K6 {t['flash_bwd_dkv_fp32_ms']:.4f} + K7 {t['flash_bwd_dq_fp32_ms']:.4f} = "
+        f"{k6k7_32:.4f} ms against the library's memory-efficient backward {t['library_bwd_fp32_ms']:.4f}: "
+        f"{k6k7_32 / t['library_bwd_fp32_ms']:.3f}x; K5 {t['flash_fwd_fp32_ms']:.4f} against its forward "
+        f"{t['library_fwd_fp32_ms']:.4f}")
     k6k7, k6k7_before = t["flash_bwd_dkv_ms"] + t["flash_bwd_dq_ms"], MMA_SYNC_MS["K6"] + MMA_SYNC_MS["K7"]
     for k in ("K3", "K4"):
         key = "fwd" if k == "K3" else "bwd"
@@ -1705,8 +1764,8 @@ KERNEL_NAMES = {
     "K3": r"qk_prep::qk_prep_kernel<.*, false>",
     "K4": r"qk_prep::qk_prep_kernel<.*, true>",
     "K5": r"flash::fwd_(wgmma_)?kernel",
-    "K6": r"flash::dkv_(wgmma_)?kernel",
-    "K7": r"flash::dq_(wgmma_)?kernel",
+    "K6": r"flash::dkv_(wgmma|tf32)_kernel",
+    "K7": r"flash::dq_(wgmma|tf32)_kernel",
 }
 
 
@@ -1748,6 +1807,7 @@ def phase_graph(torch, label: str, make, k: int, n_steps: int, interval: int,
 
     arms = {"per-step": make(1), "graph": make(k)}
     histories, peaks = {}, {}
+    reset_counts()
     for name, trainer in arms.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1758,6 +1818,7 @@ def phase_graph(torch, label: str, make, k: int, n_steps: int, interval: int,
         how = f"one eager chunk, the capture, {n_steps // k - 1} replays" if name == "graph" else "one step a call"
         log(f"[graph] {label} {name}: {n_steps} steps through train() ({how}) in "
             f"{time.perf_counter() - t0:.2f} s; peak {peaks[name]:.3f} GiB allocated")
+    launches = read_counts()  # both train() runs: the per-step arm, the eager chunk and the capture
     chunk = arms["graph"]._train_chunks.get(k)
     if chunk is None or chunk.graph is None:
         raise AssertionError(f"[graph] {label}: the {k}-step chunk was not captured")
@@ -1840,7 +1901,7 @@ def phase_graph(torch, label: str, make, k: int, n_steps: int, interval: int,
     if counts != expected_counts:
         raise AssertionError(f"[graph] {label}: kernel counts of one replay {counts}, expected {expected_counts}")
     return {"elbo_rel": rel, "bitwise": bitwise, "stats": stats, "pool_gib": pool, "device_ms": device_ms,
-            "idle": idle, "counts": counts}
+            "idle": idle, "counts": counts, "kernel_ms": kernel_ms, "launches": launches}
 
 
 def phase_graph_ou(torch, vt) -> dict:
@@ -1850,14 +1911,35 @@ def phase_graph_ou(torch, vt) -> dict:
                        k, n, interval, {"K1": k, "K2": k, **zero})
 
 
-def phase_graph_lorenz(torch, vt) -> dict:
+def phase_graph_lorenz(torch, vt, compute_dtype: str = "bfloat16") -> dict:
     k, n, interval = GRAPH_LZ
     depth = ENC["depth"]
     expected = {"K1": k, "K2": k, "K3": 2 * depth * k, "K4": 2 * depth * k,
                 "K5": depth * k, "K6": depth * k, "K7": depth * k}
-    return phase_graph(torch, "Lorenz-63", lambda spc: lorenz_trainer(torch, vt, "auto", n_iterations=n,
-                                                                      steps_per_call=spc),
+    label = "Lorenz-63" if compute_dtype == "bfloat16" else f"Lorenz-63 {compute_dtype}"
+    return phase_graph(torch, label, lambda spc: lorenz_trainer(torch, vt, "auto", compute_dtype, n_iterations=n,
+                                                                steps_per_call=spc),
                        k, n, interval, expected)
+
+
+def phase_fp32(torch, vt) -> dict:
+    """``[fp32]``: the Lorenz-63 long grid at full width with
+    ``TrainingConfig(compute_dtype="float32")``: the encoder's attention runs
+    K5 (fp32 FMA) and the 3xTF32 K6/K7. ``phase_graph``'s graph of 5 steps
+    against one step a call from one seed, with every kernel's launches over
+    both ``train()`` runs; fails unless K6 and K7 ran."""
+    t0 = time.perf_counter()
+    out = phase_graph_lorenz(torch, vt, "float32")
+    n = out["launches"]
+    st = out["stats"]
+    log(f"[fp32] Lorenz-63 fp32 (B={LZ_BATCH}, 2001 tokens): graph {st['graph']['median_ms']:.2f} ms/step, per-step "
+        f"{st['per-step']['median_ms']:.2f}; K5/K6/K7 ms/step in one replay {out['kernel_ms']['K5']:.3f} / "
+        f"{out['kernel_ms']['K6']:.3f} / {out['kernel_ms']['K7']:.3f}; launches over both train() runs "
+        f"{json.dumps(n)}; peak {st['graph']['peak_gib']:.3f} GiB (per-step {st['per-step']['peak_gib']:.3f}), "
+        f"pool {out['pool_gib']} GiB; {time.perf_counter() - t0:.1f} s")
+    if not (n["K5"] and n["K6"] and n["K7"]):
+        raise AssertionError(f"[fp32] the fp32 Lorenz path launched no K5, K6 or K7: {n}")
+    return out
 
 
 # ------------------------------------------------------ diffusion-matched head
@@ -2284,7 +2366,7 @@ def main() -> int:
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
     phase_flash_plan(torch)
-    errs["K5"], errs["K6"], errs["K7"] = phase_flash(torch)
+    errs.update(phase_flash(torch))
     mark("build and kernel checks")
     times, bounds = phase_kernel_times(torch)
     att, att_bounds = phase_attention_times(torch)
@@ -2309,6 +2391,8 @@ def main() -> int:
     phase_graph_lorenz(torch, vt)
     phase_matched(torch, vt)
     mark("examples, graphs and matched head")
+    fp32 = phase_fp32(torch, vt)
+    mark("fp32 Lorenz path")
     phase_repairs(torch, vt)
     phase_wide_head(torch, vt)
     mark("repairs")
@@ -2331,10 +2415,17 @@ def main() -> int:
          att["flash_bwd_dkv_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
         ("K7", "flash_attn_bwd_dq", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:159",
          att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
+        # fp32 inputs (the [fp32] path): K5's FMA kernel, K6/K7 in 3xTF32
+        ("K5 fp32", "flash_attn_fwd_fp32", "flash_attn_fwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:362",
+         att["flash_fwd_fp32_ms"], att["flash_fwd_plain_fp32_ms"], att["library_fwd_fp32_ms"]),
+        ("K6 fp32", "flash_attn_bwd_dkv_fp32", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:574",
+         att["flash_bwd_dkv_fp32_ms"], att["flash_bwd_plain_fp32_ms"], att["library_bwd_fp32_ms"]),
+        ("K7 fp32", "flash_attn_bwd_dq_fp32", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:159",
+         att["flash_bwd_dq_fp32_ms"], att["flash_bwd_plain_fp32_ms"], att["library_bwd_fp32_ms"]),
     ]
+    for k in ("K5", "K6", "K7"):
+        launches[k + " fp32"] = fp32["launches"][k]
     ms_of = {row[0]: row[4] for row in rows}
-    ms_of["K5 fp32"] = att["flash_fwd_fp32_ms"]
-    ms_of["K6 fp32"], ms_of["K7 fp32"] = att["flash_bwd_dkv_fp32_ms"], att["flash_bwd_dq_fp32_ms"]
     for k, bd in bounds.items():
         earlier = f" (mma.sync: {MMA_SYNC_MS[k]} ms)" if k in MMA_SYNC_MS else ""
         log(f"[bounds] {k}: {ms_of[k]:.4f} ms{earlier} against a bound of {bd['bound_ms']:.4f} ms "

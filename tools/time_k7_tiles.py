@@ -106,7 +106,7 @@ def main() -> int:
             getattr(lib, fn).argtypes = ATTENTION.signatures[fn]
             getattr(lib, fn).restype = ctypes.c_int
         plan = (ctypes.c_longlong * 5)()
-        raise_on(lib.flash_attn_bwd_plan(SHAPE[3], 1, plan), f"K7 plan {label}")
+        raise_on(lib.flash_attn_bwd_plan(SHAPE[3], 1, 1, plan), f"K7 plan {label}")
         print(f"[plan {label}] {source}: {plan[0]} q rows a block, {plan[1]} kv rows a stage", flush=True)
         libs[label] = lib
 

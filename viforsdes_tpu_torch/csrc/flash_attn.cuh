@@ -1,10 +1,10 @@
 // Shared definitions of the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the arguments, the mask and its tile shortcut, the
-// block shape and the accumulator store of the bf16 wgmma kernels (K5-K7;
-// hopper.cuh), and the tile loaders of the fp32 FMA kernels (K5-K7 for fp32
-// inputs).
+// block shape and the accumulator store of the wgmma kernels (K5-K7 for bf16
+// inputs, K6 and K7 for fp32 inputs; hopper.cuh), and the tile loaders of the
+// fp32 FMA kernel (K5 for fp32 inputs).
 //
-// Every FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
+// The FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
 // head) with 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
 // 4*ty .. 4*ty+3 and columns 4*tx .. 4*tx+3 of a tile, and rows 4*ty .. of the
 // [64, D] accumulators with D/16 of their columns. Operands live in shared
@@ -71,9 +71,10 @@ constexpr unsigned kProducerRegs = 40;
 constexpr unsigned kConsumerRegs = 232;
 
 // Store a warp's 16 rows of a warpgroup accumulator ([64, D], D / 2 floats
-// a thread; hopper.cuh) times row_scale as bf16 rows row0 + g and
-// row0 + g + 8 of the view; rows at or past S are skipped.
-template <int D>
+// a thread; hopper.cuh) times row_scale as T (bf16, or fp32 for the 3xTF32
+// kernels) rows row0 + g and row0 + g + 8 of the view; rows at or past S are
+// skipped.
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void store_acc16(const MutView& out, int b, int h, int row0, int S,
                                             const float (&acc)[D / 2], const float (&row_scale)[2],
                                             int lane) {
@@ -82,11 +83,11 @@ __device__ __forceinline__ void store_acc16(const MutView& out, int b, int h, in
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + g + 8 * half;
     if (row >= S) continue;
-    __nv_bfloat16* p = attn::row_ptr<__nv_bfloat16>(out, b, h, row) + c;
+    T* p = attn::row_ptr<T>(out, b, h, row) + c;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      attn::store2<__nv_bfloat16>(p + 8 * j, acc[4 * j + 2 * half] * row_scale[half],
-                                  acc[4 * j + 2 * half + 1] * row_scale[half]);
+      attn::store2<T>(p + 8 * j, acc[4 * j + 2 * half] * row_scale[half],
+                      acc[4 * j + 2 * half + 1] * row_scale[half]);
     }
   }
 }

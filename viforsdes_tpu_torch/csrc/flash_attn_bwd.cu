@@ -67,9 +67,52 @@
 // is released. The live registers are dQ (D / 2 floats a thread), S and dP
 // (kKv / 2 each) and the packed dS of tile j - 1 (kKv / 4).
 //
-// fp32 inputs keep the first design, fp32-exact: shared-memory tiles in fp32,
-// 4 x 4 register tiles of fp32 FMA, the ragged tail zero-filled on load and
-// masked, as in K5.
+// K6 and K7 with fp32 inputs run the same structure on the tensor cores at
+// fp32 accuracy: every product (s, dp, dv, dk in K6; s, dp, dq in K7) is
+// 3xTF32, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi with hi = tf32(x) and lo =
+// tf32(x - hi), three m64nNk8 tf32 wgmma into one fp32 accumulator
+// (hopper.cuh), as PyTorch's memory-efficient attention does with mma.sync
+// for fp32. One pass of TF32 keeps 10 mantissa bits, far from the fp32
+// bars. Bound: 3 x 262.4 GFLOP (K6) and 3 x 196.8 GFLOP (K7) at the Lorenz
+// shape, 1.590 and 1.193 ms at 495 TFLOP/s of dense TF32. What the design
+// does about what differs from bf16:
+//   - tf32 wgmma has no transpose: both shared-memory operands must be
+//     K-major. The products that bf16 reads MN-major (dv += p^T do and
+//     dk += ds^T q in K6, dq += ds k in K7) need their B with the depth
+//     (q rows, kv rows) contiguous. The producer warpgroup's warps 1-3
+//     (stagers) wait for each tile TMA brings, split it into hi and lo in
+//     place (lo in the tile's second half: Tile32) and write the
+//     transposed operand (q^T and do^T, or k^T), hi and lo, then release it
+//     to the consumers on a second barrier (ready). The consumers only
+//     issue products and form p and ds.
+//   - The tf32 A fragment from registers does not line up with the
+//     accumulator: a thread holds columns t and t + 4 of each 8-column depth
+//     step, its accumulator 2t and 2t + 1. The accumulator goes in as it is
+//     (a_split_from_acc) and the stagers store the transposed tiles' depth
+//     permuted to match (tf32_depth_pos), so no shuffle is needed.
+//   - Shared memory: fp32 tiles with their lo parts take four times the bf16
+//     bytes. A stage holds q and do (hi, lo) and q^T and do^T (hi, lo) in K6,
+//     k and v (hi, lo) and k^T (hi, lo) in K7; the fixed side's 128 rows with
+//     their lo take 128 KB at head_dim 64. So the streamed tiles are 16 rows
+//     at head_dim 64 (32 at 32); at head_dim 128 a block owns 64 rows (one
+//     consumer warpgroup) and streams 8-row tiles (DkvPlan32, DqPlan32,
+//     mirrored by flash_plan).
+//   - Registers: the passes triple the products, not the accumulators; the
+//     tile heights keep each consumer's overlap (dk and dv, s and dp, and the
+//     hi and lo fragments of p^T and ds^T) under what ptxas gives it.
+//   - Shared-memory bandwidth bounds both kernels: at 16-row tiles a product
+//     of s or dp reads its 64-row A (2 KB a depth step) for 512 bytes of B,
+//     three times, and the stagers' traffic comes on top. K7 keeps the hi
+//     parts of its fixed q and do as register A fragments (D / 2 registers
+//     a thread each, read once a block), which takes s and dp from 7.5 KB of
+//     shared-memory reads a depth step to 3.5. K6 has no registers for that
+//     beside dk and dv.
+// The hi part of a tile TMA loaded could stay the raw fp32 word, with lo =
+// tf32(x - x with its low 13 bits cut): on the H100 that holds the same
+// error (the tensor core ignores the low 13 bits of an fp32 word) at the same
+// speed, so the stagers write hi back rounded. Timing a change here: copy
+// this file, edit it, and pass the copy to tools/time_flash.py beside the
+// package's.
 
 #include <type_traits>
 
@@ -77,142 +120,6 @@
 #include "hopper.cuh"
 
 namespace flash {
-
-// K6 for fp32 inputs: dk and dv of one kv tile, fp32 FMA.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* k_t = smem;                  // [D][kLdt]   fixed for the block
-  float* v_t = k_t + D * kLdt;        // [D][kLdt]
-  float* q_t = v_t + D * kLdt;        // [D][kLdt]   per q tile
-  float* do_t = q_t + D * kLdt;       // [D][kLdt]
-  float* q_s = do_t + D * kLdt;       // [64][D]
-  float* do_s = q_s + kTile * D;      // [64][D]
-  float* ps = do_s + kTile * D;       // [64 q][kLdt]: p, then ds
-  float* lse_s = ps + kTile * kLdt;   // [64]
-  float* di_s = lse_s + kTile;        // [64]
-
-  const int kv0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  load_tile_t<T, D>(a.k, b, h, kv0, S, k_t);
-  load_tile_t<T, D>(a.v, b, h, kv0, S, v_t);
-
-  float dk[4][DPT], dv[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.0f;
-  }
-
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();
-    load_tile_t<T, D>(a.q, b, h, q0, S, q_t);
-    load_tile_t<T, D>(a.d_o, b, h, q0, S, do_t);
-    load_tile<T, D>(a.q, b, h, q0, S, q_s);
-    load_tile<T, D>(a.d_o, b, h, q0, S, do_s);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < S;
-      lse_s[r] = in ? a.lse[bh * S + q0 + r] : 0.0f;
-      di_s[r] = in ? a.di[bh * S + q0 + r] : 0.0f;
-    }
-    __syncthreads();
-
-    // transposed tiles: row i is kv row 4*ty + i, column j is q row 4*tx + j
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    tile_product<D>(s, k_t, q_t, ty, tx);
-    tile_product<D>(dp, v_t, do_t, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tx * 4 + j;
-        const bool keep = q0 + qr < S && visible(q0 + qr, kv0 + ty * 4 + i, S, a.real_len);
-        const float pv = keep ? expf(s[i][j] * a.scale - lse_s[qr]) : 0.0f;
-        p[i][j] = attn::round_to<T>(pv);
-        ds[i][j] = attn::round_to<T>(pv * (dp[i][j] - di_s[qr]) * a.scale);
-      }
-    }
-    // ps[q][kv] = p: its transpose of the register tile is the [q][kv] layout
-    store_tile_t(ps, p, ty, tx);
-    __syncthreads();
-    accumulate<D>(dv, ps, do_s, ty, tx);   // dv[kv] += sum_q p[q][kv] do[q]
-    __syncthreads();
-    store_tile_t(ps, ds, ty, tx);
-    __syncthreads();
-    accumulate<D>(dk, ps, q_s, ty, tx);    // dk[kv] += sum_q ds[q][kv] q[q]
-  }
-
-  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  store_acc<T, D>(a.dk, b, h, kv0, S, dk, one, ty, tx);
-  store_acc<T, D>(a.dv, b, h, kv0, S, dv, one, ty, tx);
-}
-
-// K7 for fp32 inputs: dq of one q tile, fp32 FMA.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* q_t = smem;                  // [D][kLdt]   fixed for the block
-  float* do_t = q_t + D * kLdt;       // [D][kLdt]
-  float* k_t = do_t + D * kLdt;       // [D][kLdt]   per kv tile
-  float* v_t = k_t + D * kLdt;        // [D][kLdt]
-  float* k_s = v_t + D * kLdt;        // [64][D]
-  float* ds_t = k_s + kTile * D;      // [64 kv][kLdt]
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  load_tile_t<T, D>(a.q, b, h, q0, S, q_t);
-  load_tile_t<T, D>(a.d_o, b, h, q0, S, do_t);
-  float lse[4], di[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse[i] = row < S ? a.lse[bh * S + row] : 0.0f;
-    di[i] = row < S ? a.di[bh * S + row] : 0.0f;
-  }
-
-  float dq[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dq[i][j] = 0.0f;
-  }
-
-  for (int kv0 = 0; kv0 < S; kv0 += kTile) {
-    __syncthreads();
-    load_tile_t<T, D>(a.k, b, h, kv0, S, k_t);
-    load_tile_t<T, D>(a.v, b, h, kv0, S, v_t);
-    load_tile<T, D>(a.k, b, h, kv0, S, k_s);
-    __syncthreads();
-
-    float s[4][4], dp[4][4], ds[4][4];
-    tile_product<D>(s, q_t, k_t, ty, tx);
-    tile_product<D>(dp, do_t, v_t, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool keep = row < S && visible(row, kv0 + tx * 4 + j, S, a.real_len);
-        const float pv = keep ? expf(s[i][j] * a.scale - lse[i]) : 0.0f;
-        ds[i][j] = attn::round_to<T>(pv * (dp[i][j] - di[i]) * a.scale);
-      }
-    }
-    store_tile_t(ds_t, ds, ty, tx);
-    __syncthreads();
-    accumulate<D>(dq, ds_t, k_s, ty, tx);  // dq[q] += sum_kv ds[q][kv] k[kv]
-  }
-
-  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  store_acc<T, D>(a.dq, b, h, q0, S, dq, one, ty, tx);
-}
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -707,31 +614,605 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- fp32 path (3xTF32)
+
+// The fp32 kernels' producer warpgroup: warp 0 issues the TMA loads (in K6
+// its lanes also copy lse and di), warps 1-3 are the stagers, kStagers
+// threads. The registers the producer hands over: 128 x 56 + 256 x 224 fit
+// the 384 x 168 a block of three warpgroups is launched with.
+constexpr int kStagers = 96;
+constexpr unsigned kProducerRegs32 = 56;
+constexpr unsigned kConsumerRegs32 = 224;
+
+// Split rows 0 .. R - 1 of a Tile32<D> of R rows (TMA wrote them into its hi
+// part) into hi and lo in place, as stager tid of kStagers; with T, also write
+// them to t, a Tile32<R> of D rows: row d, depth position tf32_depth_pos(r),
+// hi and lo. Each thread takes 16-byte chunks of four columns of one row;
+// neighbouring threads take neighbouring rows. (Blocks of 4 x 4, stored 16
+// bytes at a time to t, ran slower.)
+template <int D, int R, bool T>
+__device__ __forceinline__ void stage_tile(float* tile, float* t, int tid) {
+  using L = hopper::Tile32<D>;
+  using LT = hopper::Tile32<R>;
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+  unsigned char* t_base = reinterpret_cast<unsigned char*>(t);
+  for (int i = tid; i < R * (D / 4); i += kStagers) {
+    const int r = i % R, c = 4 * (i / R);
+    float4* hi_p = reinterpret_cast<float4*>(base + L::template offset<R>(r, c));
+    const float4 x4 = *hi_p;
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    float hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hopper::tf32_split(x[e], hi[e], lo[e]);
+    *hi_p = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    hi_p[R * L::kPitch / 16] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (T) {
+      const int pos = hopper::tf32_depth_pos(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* p = reinterpret_cast<float*>(t_base + LT::template offset<D>(c + e, pos));
+        p[0] = hi[e];
+        p[D * LT::kPitch / 4] = lo[e];
+      }
+    }
+  }
+}
+
+// K6's plan for fp32 inputs at head_dim D: kRows kv rows a block (kGroups
+// consumer warpgroups), kQ q rows a stage. Shared memory: k and v of the
+// block (hi and lo), the ring of (q, do, q^T, do^T; each hi and lo), the
+// ring's lse and di, then the barriers, after up to 1024 bytes that align
+// the tiles (flash_plan in ops/flash_attention.py mirrors this).
+template <int D>
+struct DkvPlan32 {
+  static constexpr int kGroups = D == 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kGroups;
+  static constexpr int kThreads = 128 * (kGroups + 1);
+  static constexpr int kQ = D == 32 ? 32 : D == 64 ? 16 : 8;
+  static constexpr int kStages = D == 32 ? 4 : 3;
+  static constexpr int kTile = hopper::Tile32<D>::template bytes<kQ>();  // one streamed operand = Tile32<kQ> of D rows
+  static constexpr int kKvBytes = 2 * hopper::Tile32<D>::template bytes<kRows>();
+  static constexpr int kStageBytes = 4 * kTile;
+  static constexpr int kTmaBytes = 2 * kQ * D * 4;  // q and do by TMA
+  static constexpr int kRowBytes = 2 * kQ * 4;      // lse, di
+  static constexpr int kBarriers = 2 + 3 * kStages;
+  static constexpr size_t kSmem = 1024 + kKvBytes + kStages * (kStageBytes + kRowBytes) + 8 * kBarriers;
+  static_assert(hopper::Tile32<kQ>::template bytes<D>() == kTile, "q^T and do^T take a tile's bytes");
+};
+
+// s^T = k q^T and dp^T = v do^T of one tile in 3xTF32: k and v the
+// warpgroup's 64 rows of the block's Tile32 of R rows, q and do the tile's BQ
+// rows (hi and lo in each, K-major); s and dp are not read. k_s and v_s
+// pass through opaque: the 4 D / 8 descriptors of the fixed tiles are then
+// not held in registers across the tile loop (K6 ran 4% faster so). (k's and
+// v's hi parts as register A fragments, as K7 takes q and do, spill at the
+// 168 registers a consumer thread gets beside dk, dv and the p^T, ds^T
+// fragments, and ran slower.)
+template <int D, int BQ, int R>
+__device__ __forceinline__ void dkv_scores_tf32(float (&s)[BQ / 2], float (&dp)[BQ / 2], const float* k_s,
+                                                const float* v_s, const float* q, const float* d_o, int wg) {
+  const int hi = 64 * wg, lo = R + 64 * wg;
+  k_s = hopper::opaque(k_s);
+  v_s = hopper::opaque(v_s);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t kh = hopper::desc_k32<D, R>(k_s, hi, kk), kl = hopper::desc_k32<D, R>(k_s, lo, kk);
+    const uint64_t qh = hopper::desc_k32<D, BQ>(q, 0, kk), ql = hopper::desc_k32<D, BQ>(q, BQ, kk);
+    hopper::mma_ss_tf32<BQ>(s, kh, qh, kk);
+    hopper::mma_ss_tf32<BQ>(s, kh, ql, 1);
+    hopper::mma_ss_tf32<BQ>(s, kl, qh, 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t vh = hopper::desc_k32<D, R>(v_s, hi, kk), vl = hopper::desc_k32<D, R>(v_s, lo, kk);
+    const uint64_t oh = hopper::desc_k32<D, BQ>(d_o, 0, kk), ol = hopper::desc_k32<D, BQ>(d_o, BQ, kk);
+    hopper::mma_ss_tf32<BQ>(dp, vh, oh, kk);
+    hopper::mma_ss_tf32<BQ>(dp, vh, ol, 1);
+    hopper::mma_ss_tf32<BQ>(dp, vl, oh, 1);
+  }
+}
+
+// d += a b over a tile's BQ depth rows in 3xTF32: a the hi and lo fragments
+// from registers, b a Tile32<BQ> of D rows (hi, lo; depth permuted).
+template <int D, int BQ>
+__device__ __forceinline__ void grad_tf32(float (&d)[D / 2], const uint32_t (&ah)[BQ / 8][4],
+                                          const uint32_t (&al)[BQ / 8][4], const float* b) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 8; ++kk) {
+    const uint64_t bh = hopper::desc_k32<BQ, D>(b, 0, kk), bl = hopper::desc_k32<BQ, D>(b, D, kk);
+    hopper::mma_rs_tf32<D>(d, ah[kk], bh);
+    hopper::mma_rs_tf32<D>(d, ah[kk], bl);
+    hopper::mma_rs_tf32<D>(d, al[kk], bh);
+  }
+}
+
+// K6 for fp32 inputs: dk and dv of kRows kv rows, 64 per consumer warpgroup.
+template <int D>
+__global__ void __launch_bounds__(DkvPlan32<D>::kThreads, 1) dkv_tf32_kernel(const BwdArgs a,
+                                                                             const __grid_constant__ DkvMaps maps) {
+  using P = DkvPlan32<D>;
+  constexpr int BQ = P::kQ, ST = P::kStages, R = P::kRows, CW = 4 * P::kGroups;
+  constexpr int NS = BQ / 2, NG = D / 2, KQ = BQ / 8;  // floats a thread: s and dp, dk and dv; depth steps
+  extern __shared__ __align__(1024) unsigned char smem_tf[];
+  unsigned char* base = hopper::align1024(smem_tf);
+  float* k_s = reinterpret_cast<float*>(base);                      // Tile32<D> of R kv rows
+  float* v_s = reinterpret_cast<float*>(base + P::kKvBytes / 2);
+  unsigned char* ring = base + P::kKvBytes;                         // [ST] x (q, do, q^T, do^T)
+  float* lse_s = reinterpret_cast<float*>(ring + ST * P::kStageBytes);  // [ST][BQ], lse log2(e)
+  float* di_s = lse_s + ST * BQ;                                        // [ST][BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(di_s + ST * BQ);
+  uint64_t* kv_full = bars;       // k and v have arrived
+  uint64_t* kv_ready = bars + 1;  // and are split
+  uint64_t* full = bars + 2;      // [ST]: the stage's q, do, lse, di are in
+  uint64_t* ready = full + ST;    // [ST]: q and do split, q^T and do^T written
+  uint64_t* empty = ready + ST;   // [ST]: every consumer warp is done with it
+  auto operand = [&](int st, int which) {  // 0 q, 1 do, 2 q^T, 3 do^T
+    return reinterpret_cast<float*>(ring + st * P::kStageBytes + which * P::kTile);
+  };
+
+  const int kv0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0), lane = threadIdx.x % 32;
+  const int S = a.S, n_tiles = (S + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(kv_full, 1);
+    hopper::bar_init(kv_ready, kStagers);
+    for (int st = 0; st < ST; ++st) {
+      hopper::bar_init(full + st, 32);  // the producer warp's lanes
+      hopper::bar_init(ready + st, kStagers);
+      hopper::bar_init(empty + st, CW);
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= CW) {  // the producer warpgroup
+    if constexpr (P::kGroups == 2) hopper::regs_dec<kProducerRegs32>();
+    if (warp == CW) {
+      const long long bh = static_cast<long long>(b) * a.H + h;
+      if (lane == 0) {
+        hopper::prefetch_map(&maps.q);
+        hopper::prefetch_map(&maps.d_o);
+        hopper::bar_arrive_expect_tx(kv_full, 2 * R * D * 4);
+        hopper::tma_rows32<D, R>(k_s, &maps.k, kv_full, kv0, h, b);
+        hopper::tma_rows32<D, R>(v_s, &maps.v, kv_full, kv0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST, q0 = j * BQ;
+        if (j >= ST) hopper::bar_wait(empty + st, (j / ST - 1) & 1);
+        for (int r = lane; r < BQ; r += 32) {  // rows past S: zeros, masked below
+          const bool in = q0 + r < S;
+          lse_s[st * BQ + r] = in ? a.lse[bh * S + q0 + r] * kLog2e : 0.0f;
+          di_s[st * BQ + r] = in ? a.di[bh * S + q0 + r] : 0.0f;
+        }
+        if (lane == 0) {
+          hopper::bar_arrive_expect_tx(full + st, P::kTmaBytes);
+          hopper::tma_rows32<D, BQ>(operand(st, 0), &maps.q, full + st, q0, h, b);
+          hopper::tma_rows32<D, BQ>(operand(st, 1), &maps.d_o, full + st, q0, h, b);
+        } else {
+          hopper::bar_arrive(full + st);
+        }
+      }
+    } else {  // the stagers
+      const int tid = static_cast<int>(threadIdx.x) - 32 * (CW + 1);
+      hopper::bar_wait(kv_full, 0);
+      stage_tile<D, R, false>(k_s, nullptr, tid);
+      stage_tile<D, R, false>(v_s, nullptr, tid);
+      hopper::proxy_fence();
+      hopper::bar_arrive(kv_ready);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        hopper::bar_wait(full + st, (j / ST) & 1);
+        stage_tile<D, BQ, true>(operand(st, 0), operand(st, 2), tid);
+        stage_tile<D, BQ, true>(operand(st, 1), operand(st, 3), tid);
+        hopper::proxy_fence();
+        hopper::bar_arrive(ready + st);
+      }
+    }
+  } else {
+    // a consumer warpgroup: kv rows kw .. kw + 63, this warp's 16 from kw + wrow
+    if constexpr (P::kGroups == 2) hopper::regs_inc<kConsumerRegs32>();
+    const int wg = warp / 4, kw = kv0 + 64 * wg, wrow = 16 * (warp % 4);
+
+    float dk[NG], dv[NG];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) dk[i] = dv[i] = 0.0f;
+    // hi and lo of p^T and ds^T of the tile whose dv, dk are next
+    uint32_t ph[KQ][4], pl[KQ][4], dh[KQ][4], dl[KQ][4];
+    hopper::bar_wait(kv_ready, 0);
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + st);
+    };
+    auto form = [&](float (&s)[NS], float (&dp)[NS], int j) {  // p^T, ds^T of tile j in place
+      const int st = j % ST, q0 = j * BQ;
+      dkv_scores(s, dp, lse_s + st * BQ, di_s + st * BQ, !all_visible(q0, q0 + BQ, kw, kw + 64, S, a.real_len),
+                 kw + wrow, q0, S, a.real_len, a.scale, lane);
+    };
+    auto pack = [&](const float (&s)[NS], const float (&dp)[NS]) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        hopper::a_split_from_acc(ph[kk], pl[kk], s + 4 * kk);
+        hopper::a_split_from_acc(dh[kk], dl[kk], dp + 4 * kk);
+      }
+    };
+    auto fence_frags = [&] {
+      hopper::fence_regs(ph);
+      hopper::fence_regs(pl);
+      hopper::fence_regs(dh);
+      hopper::fence_regs(dl);
+    };
+
+    // tile 0: its s^T, dp^T, p^T and ds^T alone
+    {
+      float s[NS], dp[NS];
+      hopper::bar_wait(ready, 0);
+      hopper::wg_fence();
+      dkv_scores_tf32<D, BQ, R>(s, dp, k_s, v_s, operand(0, 0), operand(0, 1), wg);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      form(s, dp, 0);
+      pack(s, dp);
+    }
+    // tile j's s^T and dp^T are issued with tile j - 1's dv and dk products,
+    // and its p^T and ds^T are formed while those are on the tensor cores
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, prev = (j - 1) % ST;
+      float s[NS], dp[NS];
+      hopper::bar_wait(ready + st, (j / ST) & 1);
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      fence_frags();
+      hopper::wg_fence();
+      dkv_scores_tf32<D, BQ, R>(s, dp, k_s, v_s, operand(st, 0), operand(st, 1), wg);
+      hopper::wg_commit();
+      grad_tf32<D, BQ>(dv, ph, pl, operand(prev, 3));
+      grad_tf32<D, BQ>(dk, dh, dl, operand(prev, 2));
+      hopper::wg_commit();
+      hopper::wg_wait<1>();  // s^T and dp^T
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      form(s, dp, j);
+      hopper::wg_wait<0>();  // dv and dk of tile j - 1
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      fence_frags();
+      release(prev);
+      pack(s, dp);
+    }
+    // the last tile's dv and dk
+    {
+      const int last = (n_tiles - 1) % ST;
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      fence_frags();
+      hopper::wg_fence();
+      grad_tf32<D, BQ>(dv, ph, pl, operand(last, 3));
+      grad_tf32<D, BQ>(dk, dh, dl, operand(last, 2));
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      release(last);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    store_acc16<D, float>(a.dk, b, h, kw + wrow, S, dk, one, lane);
+    store_acc16<D, float>(a.dv, b, h, kw + wrow, S, dv, one, lane);
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32(const BwdArgs& a, cudaStream_t stream) {
+  using P = DkvPlan32<D>;
+  DkvMaps maps;
+  cudaError_t err = hopper::bhsd_map32(&maps.k, a.k.p, a.k.sb, a.k.sh, a.k.ss, a.B, a.H, a.S, D, P::kRows);
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.v, a.v.p, a.v.sb, a.v.sh, a.v.ss, a.B, a.H, a.S, D, P::kRows);
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.q, a.q.p, a.q.sb, a.q.sh, a.q.ss, a.B, a.H, a.S, D, P::kQ);
+  if (err == cudaSuccess) {
+    err = hopper::bhsd_map32(&maps.d_o, a.d_o.p, a.d_o.sb, a.d_o.sh, a.d_o.ss, a.B, a.H, a.S, D, P::kQ);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = dkv_tf32_kernel<D>;
+  err = attn::allow_smem(kernel, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + P::kRows - 1) / P::kRows, a.H, a.B);
+  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(a, maps);
+  return cudaGetLastError();
+}
+
+// K7's plan for fp32 inputs at head_dim D: kRows q rows a block (kGroups
+// consumer warpgroups), kKv kv rows a stage. Shared memory: q and do of the
+// block (hi and lo), the ring of (k, v, k^T; each hi and lo), then the
+// barriers, after up to 1024 bytes that align the tiles (flash_plan in
+// ops/flash_attention.py mirrors this).
+template <int D>
+struct DqPlan32 {
+  static constexpr int kGroups = D == 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kGroups;
+  static constexpr int kThreads = 128 * (kGroups + 1);
+  static constexpr int kKv = D == 32 ? 32 : D == 64 ? 16 : 8;
+  static constexpr int kStages = 4;
+  // q and do's hi parts as register A fragments (D / 2 registers a thread),
+  // read once a block: s and dp then read only their lo parts and k, v from
+  // shared memory. At head_dim 128 the registers go to dq.
+  static constexpr bool kRegA = D <= 64;
+  static constexpr int kTile = hopper::Tile32<D>::template bytes<kKv>();
+  static constexpr int kQoBytes = 2 * hopper::Tile32<D>::template bytes<kRows>();
+  static constexpr int kStageBytes = 3 * kTile;
+  static constexpr int kTmaBytes = 2 * kKv * D * 4;  // k and v by TMA
+  static constexpr int kBarriers = 2 + 3 * kStages;
+  static constexpr size_t kSmem = 1024 + kQoBytes + kStages * kStageBytes + 8 * kBarriers;
+  static_assert(hopper::Tile32<kKv>::template bytes<D>() == kTile, "k^T takes a tile's bytes");
+};
+
+// The A fragments of one warp's 16 rows from row0 of a Tile32<D> of R rows
+// (hi part), every depth step: rows g and g + 8, columns t and t + 4 of
+// each 8-column step (hopper.cuh), read once.
+template <int D, int R>
+__device__ __forceinline__ void a_from_tile(uint32_t (&a)[D / 8][4], const float* tile, int row0, int lane) {
+  using L = hopper::Tile32<D>;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(base + L::template offset<R>(row, col));
+    }
+  }
+}
+
+// s = q k^T, then dp = do v^T of one tile in 3xTF32, each its own commit
+// group: q and do the warpgroup's 64 rows of the block's Tile32 of R rows
+// (with kRegA their hi parts from registers, qa and oa), k and v the tile's
+// BK rows (hi and lo in each, K-major); s and dp are not read.
+template <int D, int BK, int R, bool kRegA, int KA>
+__device__ __forceinline__ void dq_scores_tf32(float (&s)[BK / 2], float (&dp)[BK / 2], const float* q_s,
+                                               const float* do_s, const uint32_t (&qa)[KA][4],
+                                               const uint32_t (&oa)[KA][4], const float* k, const float* v,
+                                               int wg) {
+  const int hi = 64 * wg, lo = R + 64 * wg;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t ql = hopper::desc_k32<D, R>(q_s, lo, kk);
+    const uint64_t kh = hopper::desc_k32<D, BK>(k, 0, kk), kl = hopper::desc_k32<D, BK>(k, BK, kk);
+    if constexpr (kRegA) {
+      hopper::mma_rs_tf32<BK>(s, qa[kk], kh, kk);
+      hopper::mma_rs_tf32<BK>(s, qa[kk], kl, 1);
+    } else {
+      const uint64_t qh = hopper::desc_k32<D, R>(q_s, hi, kk);
+      hopper::mma_ss_tf32<BK>(s, qh, kh, kk);
+      hopper::mma_ss_tf32<BK>(s, qh, kl, 1);
+    }
+    hopper::mma_ss_tf32<BK>(s, ql, kh, 1);
+  }
+  hopper::wg_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t ol = hopper::desc_k32<D, R>(do_s, lo, kk);
+    const uint64_t vh = hopper::desc_k32<D, BK>(v, 0, kk), vl = hopper::desc_k32<D, BK>(v, BK, kk);
+    if constexpr (kRegA) {
+      hopper::mma_rs_tf32<BK>(dp, oa[kk], vh, kk);
+      hopper::mma_rs_tf32<BK>(dp, oa[kk], vl, 1);
+    } else {
+      const uint64_t oh = hopper::desc_k32<D, R>(do_s, hi, kk);
+      hopper::mma_ss_tf32<BK>(dp, oh, vh, kk);
+      hopper::mma_ss_tf32<BK>(dp, oh, vl, 1);
+    }
+    hopper::mma_ss_tf32<BK>(dp, ol, vh, 1);
+  }
+  hopper::wg_commit();
+}
+
+// K7 for fp32 inputs: dq of kRows q rows, 64 per consumer warpgroup.
+template <int D>
+__global__ void __launch_bounds__(DqPlan32<D>::kThreads, 1) dq_tf32_kernel(const BwdArgs a,
+                                                                           const __grid_constant__ DqMaps maps) {
+  using P = DqPlan32<D>;
+  constexpr int BK = P::kKv, ST = P::kStages, R = P::kRows, CW = 4 * P::kGroups;
+  constexpr int NS = BK / 2, NG = D / 2, KK = BK / 8;  // floats a thread: s and dp, dq; depth steps
+  extern __shared__ __align__(1024) unsigned char smem_tf[];
+  unsigned char* base = hopper::align1024(smem_tf);
+  float* q_s = reinterpret_cast<float*>(base);                  // Tile32<D> of R q rows
+  float* do_s = reinterpret_cast<float*>(base + P::kQoBytes / 2);
+  unsigned char* ring = base + P::kQoBytes;                     // [ST] x (k, v, k^T)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + ST * P::kStageBytes);
+  uint64_t* qo_full = bars;       // q and do have arrived
+  uint64_t* qo_ready = bars + 1;  // and are split
+  uint64_t* full = bars + 2;      // [ST]: the stage's k and v have arrived
+  uint64_t* ready = full + ST;    // [ST]: k and v split, k^T written
+  uint64_t* empty = ready + ST;   // [ST]: every consumer warp is done with it
+  auto operand = [&](int st, int which) {  // 0 k, 1 v, 2 k^T
+    return reinterpret_cast<float*>(ring + st * P::kStageBytes + which * P::kTile);
+  };
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0), lane = threadIdx.x % 32;
+  const int S = a.S, n_tiles = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(qo_full, 1);
+    hopper::bar_init(qo_ready, kStagers);
+    for (int st = 0; st < ST; ++st) {
+      hopper::bar_init(full + st, 1);
+      hopper::bar_init(ready + st, kStagers);
+      hopper::bar_init(empty + st, CW);
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= CW) {  // the producer warpgroup
+    if constexpr (P::kGroups == 2) hopper::regs_dec<kProducerRegs32>();
+    if (warp == CW) {
+      if (lane == 0) {
+        hopper::prefetch_map(&maps.k);
+        hopper::prefetch_map(&maps.v);
+        hopper::bar_arrive_expect_tx(qo_full, 2 * R * D * 4);
+        hopper::tma_rows32<D, R>(q_s, &maps.q, qo_full, q0, h, b);
+        hopper::tma_rows32<D, R>(do_s, &maps.d_o, qo_full, q0, h, b);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int st = j % ST;
+          if (j >= ST) hopper::bar_wait(empty + st, (j / ST - 1) & 1);
+          hopper::bar_arrive_expect_tx(full + st, P::kTmaBytes);
+          hopper::tma_rows32<D, BK>(operand(st, 0), &maps.k, full + st, j * BK, h, b);
+          hopper::tma_rows32<D, BK>(operand(st, 1), &maps.v, full + st, j * BK, h, b);
+        }
+      }
+    } else {  // the stagers
+      const int tid = static_cast<int>(threadIdx.x) - 32 * (CW + 1);
+      hopper::bar_wait(qo_full, 0);
+      stage_tile<D, R, false>(q_s, nullptr, tid);
+      stage_tile<D, R, false>(do_s, nullptr, tid);
+      hopper::proxy_fence();
+      hopper::bar_arrive(qo_ready);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        hopper::bar_wait(full + st, (j / ST) & 1);
+        stage_tile<D, BK, true>(operand(st, 0), operand(st, 2), tid);
+        stage_tile<D, BK, false>(operand(st, 1), nullptr, tid);
+        hopper::proxy_fence();
+        hopper::bar_arrive(ready + st);
+      }
+    }
+  } else {
+    // a consumer warpgroup: q rows qw .. qw + 63, this warp's 16 from qw + wrow
+    if constexpr (P::kGroups == 2) hopper::regs_inc<kConsumerRegs32>();
+    const int wg = warp / 4, qw = q0 + 64 * wg, wrow = 16 * (warp % 4);
+    const float scale2 = a.scale * kLog2e;
+
+    // lse log2(e) - log2(scale) and di of this thread's rows (g and g + 8 of
+    // the warp's 16), fixed for the block; rows past S read zeros, masked
+    // below
+    float lse2[2], di[2];
+    {
+      const long long bh = static_cast<long long>(b) * a.H + h;
+      const float log2_scale = log2f(a.scale);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = qw + wrow + lane / 4 + 8 * half;
+        lse2[half] = row < S ? fmaf(a.lse[bh * S + row], kLog2e, -log2_scale) : 0.0f;
+        di[half] = row < S ? a.di[bh * S + row] : 0.0f;
+      }
+    }
+    float dq[NG];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) dq[i] = 0.0f;
+    uint32_t dh[KK][4], dl[KK][4];  // hi and lo of ds of the tile whose dq product is next
+    hopper::bar_wait(qo_ready, 0);
+    constexpr int KA = P::kRegA ? D / 8 : 1;
+    uint32_t qa[KA][4], oa[KA][4];  // with kRegA: the hi A fragments of this warp's q and do rows
+    if constexpr (P::kRegA) {
+      a_from_tile<D, R>(qa, q_s, 64 * wg + wrow, lane);
+      a_from_tile<D, R>(oa, do_s, 64 * wg + wrow, lane);
+    }
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + st);
+    };
+    auto probs = [&](float (&s)[NS], int j) {  // p scale of tile j in place of s
+      const int kv0 = j * BK;
+      dq_probs(s, lse2, !all_visible(qw, qw + 64, kv0, kv0 + BK, S, a.real_len), qw + wrow, kv0, S, a.real_len,
+               scale2, lane);
+    };
+    auto pack = [&](const float (&s)[NS]) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) hopper::a_split_from_acc(dh[kk], dl[kk], s + 4 * kk);
+    };
+
+    // tile 0: its s, dp and ds alone, p while dp is on the tensor cores
+    {
+      float s[NS], dp[NS];
+      hopper::bar_wait(ready, 0);
+      hopper::wg_fence();
+      dq_scores_tf32<D, BK, R, P::kRegA>(s, dp, q_s, do_s, qa, oa, operand(0, 0), operand(0, 1), wg);
+      hopper::wg_wait<1>();  // s
+      hopper::fence_regs(s);
+      probs(s, 0);
+      hopper::wg_wait<0>();  // dp
+      hopper::fence_regs(dp);
+      dq_ds(s, dp, di);
+      pack(s);
+    }
+    // tile j's s and dp are issued with tile j - 1's dq product; its p is
+    // formed while dp and that product are on the tensor cores, its ds while
+    // the product is
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, prev = (j - 1) % ST;
+      float s[NS], dp[NS];
+      hopper::bar_wait(ready + st, (j / ST) & 1);
+      hopper::fence_regs(dq);
+      hopper::fence_regs(dh);
+      hopper::fence_regs(dl);
+      hopper::wg_fence();
+      dq_scores_tf32<D, BK, R, P::kRegA>(s, dp, q_s, do_s, qa, oa, operand(st, 0), operand(st, 1), wg);
+      grad_tf32<D, BK>(dq, dh, dl, operand(prev, 2));
+      hopper::wg_commit();
+      hopper::wg_wait<2>();  // s
+      hopper::fence_regs(s);
+      probs(s, j);
+      hopper::wg_wait<1>();  // dp
+      hopper::fence_regs(dp);
+      dq_ds(s, dp, di);
+      hopper::wg_wait<0>();  // dq of tile j - 1
+      hopper::fence_regs(dq);
+      hopper::fence_regs(dh);
+      hopper::fence_regs(dl);
+      release(prev);
+      pack(s);
+    }
+    // the last tile's dq product
+    {
+      const int last = (n_tiles - 1) % ST;
+      hopper::fence_regs(dq);
+      hopper::fence_regs(dh);
+      hopper::fence_regs(dl);
+      hopper::wg_fence();
+      grad_tf32<D, BK>(dq, dh, dl, operand(last, 2));
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(dq);
+      release(last);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    store_acc16<D, float>(a.dq, b, h, qw + wrow, S, dq, one, lane);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tf32(const BwdArgs& a, cudaStream_t stream) {
+  using P = DqPlan32<D>;
+  DqMaps maps;
+  cudaError_t err = hopper::bhsd_map32(&maps.q, a.q.p, a.q.sb, a.q.sh, a.q.ss, a.B, a.H, a.S, D, P::kRows);
+  if (err == cudaSuccess) {
+    err = hopper::bhsd_map32(&maps.d_o, a.d_o.p, a.d_o.sb, a.d_o.sh, a.d_o.ss, a.B, a.H, a.S, D, P::kRows);
+  }
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.k, a.k.p, a.k.sb, a.k.sh, a.k.ss, a.B, a.H, a.S, D, P::kKv);
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.v, a.v.p, a.v.sb, a.v.sh, a.v.ss, a.B, a.H, a.S, D, P::kKv);
+  if (err != cudaSuccess) return err;
+  auto kernel = dq_tf32_kernel<D>;
+  err = attn::allow_smem(kernel, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + P::kRows - 1) / P::kRows, a.H, a.B);
+  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(a, maps);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- dispatch
 
 // Pass 0 launches K6 (dk, dv), pass 1 K7 (dq); the wrapper runs 0 then 1.
-// bf16 inputs take the wgmma kernels, fp32 inputs the FMA kernels.
+// bf16 inputs take the bf16 wgmma kernels, fp32 inputs the 3xTF32 ones.
 template <typename T, int D>
 cudaError_t launch_typed(const BwdArgs& a, int pass, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return pass == 0 ? launch_dkv_wgmma<D>(a, stream) : launch_dq_wgmma<D>(a, stream);
   } else {
-    const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
-    if (pass == 0) {
-      auto kernel = dkv_kernel<T, D>;
-      const size_t smem =
-          sizeof(float) * (4 * D * kLdt + 2 * kTile * D + kTile * kLdt + 2 * kTile);
-      cudaError_t err = attn::allow_smem(kernel, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, stream>>>(a);
-    } else {
-      auto kernel = dq_kernel<T, D>;
-      const size_t smem = sizeof(float) * (4 * D * kLdt + kTile * D + kTile * kLdt);
-      cudaError_t err = attn::allow_smem(kernel, smem);
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, smem, stream>>>(a);
-    }
-    return cudaGetLastError();
+    return pass == 0 ? launch_dkv_tf32<D>(a, stream) : launch_dq_tf32<D>(a, stream);
   }
 }
 
@@ -745,12 +1226,24 @@ cudaError_t launch(const BwdArgs& a, int D, int pass, cudaStream_t stream) {
   }
 }
 
-// The bf16 plan of pass 0 (K6) or 1 (K7) at head_dim D: {rows a block, rows
-// a stage, stages, threads, dynamic shared memory bytes}.
+// The plan of pass 0 (K6) or 1 (K7) at head_dim D for bf16 or fp32 inputs:
+// {rows a block, rows a stage, stages, threads, dynamic shared memory bytes}.
 template <int D>
-void bwd_plan(int pass, long long* out) {
-  const long long plan[5] = {kWgRows, pass == 0 ? DkvPlan<D>::kQ : DqPlan<D>::kKv, kWgStages, kWgThreads,
-                             static_cast<long long>(pass == 0 ? DkvPlan<D>::kSmem : DqPlan<D>::kSmem)};
+void bwd_plan(int pass, int is_bf16, long long* out) {
+  long long plan[5];
+  if (is_bf16) {
+    const long long bf16[5] = {kWgRows, pass == 0 ? DkvPlan<D>::kQ : DqPlan<D>::kKv, kWgStages, kWgThreads,
+                               static_cast<long long>(pass == 0 ? DkvPlan<D>::kSmem : DqPlan<D>::kSmem)};
+    for (int i = 0; i < 5; ++i) plan[i] = bf16[i];
+  } else if (pass == 0) {
+    using P = DkvPlan32<D>;
+    const long long fp32[5] = {P::kRows, P::kQ, P::kStages, P::kThreads, static_cast<long long>(P::kSmem)};
+    for (int i = 0; i < 5; ++i) plan[i] = fp32[i];
+  } else {
+    using P = DqPlan32<D>;
+    const long long fp32[5] = {P::kRows, P::kKv, P::kStages, P::kThreads, static_cast<long long>(P::kSmem)};
+    for (int i = 0; i < 5; ++i) plan[i] = fp32[i];
+  }
   for (int i = 0; i < 5; ++i) out[i] = plan[i];
 }
 
@@ -778,15 +1271,16 @@ extern "C" int flash_attn_bwd(
                                   : launch<float>(a, D, pass, st));
 }
 
-// The bf16 plan of K6 (pass 0: kv rows a block, q rows a stage) or K7 (pass
-// 1: q rows a block, kv rows a stage) at head_dim D: {rows a block, rows a
-// stage, stages, threads, dynamic shared memory bytes}.
-extern "C" int flash_attn_bwd_plan(int D, int pass, long long* out) {
+// The plan of K6 (pass 0: kv rows a block, q rows a stage) or K7 (pass 1: q
+// rows a block, kv rows a stage) at head_dim D for bf16 (is_bf16 1) or fp32
+// inputs: {rows a block, rows a stage, stages, threads, dynamic shared memory
+// bytes}.
+extern "C" int flash_attn_bwd_plan(int D, int pass, int is_bf16, long long* out) {
   if (pass != 0 && pass != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 32: flash::bwd_plan<32>(pass, out); return 0;
-    case 64: flash::bwd_plan<64>(pass, out); return 0;
-    case 128: flash::bwd_plan<128>(pass, out); return 0;
+    case 32: flash::bwd_plan<32>(pass, is_bf16, out); return 0;
+    case 64: flash::bwd_plan<64>(pass, is_bf16, out); return 0;
+    case 128: flash::bwd_plan<128>(pass, is_bf16, out); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
