@@ -31,14 +31,14 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
    backward, against the plain backward and against autograd through the
-   plain forward, in bf16 and in fp32 (K6/K7 in 3xTF32), at the Lorenz
+   plain forward, in bf16 and in fp32 (K5-K7 in 3xTF32), at the Lorenz
    shape, ragged shapes, the edges of the tiles (S = 1, 64, 65, 127, 128,
-   129, 257: 128-row blocks, 64 at fp32 head_dim 128), ``real_len`` masks
-   (inside a 128-row block, inside a streamed tile, inside K7's 64-row kv
-   tile at head_dim 32), head_dim 32 and 128 and strided q/k/v; K5's bf16
-   and K6's and K7's bf16 and fp32 launch plans as the kernels report them
-   against ``flash_plan``; K6+K7 twice on the Lorenz inputs, bitwise equal,
-   in bf16 and fp32;
+   129, 257: 128-row blocks, 64 at fp32 head_dim 128; S = 17, 33: one row
+   past the fp32 K5's kv tiles), ``real_len`` masks (inside a 128-row
+   block, inside a streamed tile, inside K7's 64-row kv tile at head_dim
+   32), head_dim 32 and 128 and strided q/k/v; K5's, K6's and K7's bf16 and
+   fp32 launch plans as the kernels report them against ``flash_plan``; K5
+   and K6+K7 twice on the Lorenz inputs, bitwise equal, in bf16 and fp32;
 7. every kernel's time beside its plain version's (CUDA events) at the
    shapes of the main paths, its bound (the larger of its operations over the
    card's peak rate for their type and its bytes over the memory rate) and,
@@ -47,7 +47,7 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    inputs as the yardstick, K5-K7 and the library timed in turns (each turn
    runs them in order, then in reverse) before any other attention timing;
    K5-K7 also with fp32 inputs in as many turns (yardstick: the
-   memory-efficient backend), K6/K7 beside both their 3xTF32 bound (495
+   memory-efficient backend), each beside both its 3xTF32 bound (495
    TFLOP/s of TF32) and the bound of the same products in fp32 FMA;
    K1/K2 also in microseconds per serial step,
    both at 1, 2 and 4 rows per block, K1 on its streaming plan and both on
@@ -100,7 +100,7 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    steps a graph over 15, against one step a call from the same seed):
    finite ELBOs, both arms' ms/step and peak memory, the graph's pool, K5-K7
    ms a step in one profiled replay, and the launches of both ``train()``
-   runs (K6/K7 in 3xTF32; it fails if K5, K6 or K7 ran no time);
+   runs (K5-K7 in 3xTF32; it fails if K5, K6 or K7 ran no time);
 14. ``[repairs]``: ``attention()`` at S=2001 in bf16 at head widths 16 and
    48 (K5-K7 zero-padded to 32 and 64) and 256 (the dense path), forward
    and backward against the plain path within the bf16 bars, K3-K7
@@ -183,7 +183,7 @@ MMA_SYNC_MS = {"K5": 0.883, "K6": 1.547, "K7": 1.074}
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 and
 # TF32 on the tensor cores, fp32 outside them, and device memory. The fp32
-# K6/K7 run each product as three TF32 products (3xTF32): their bound counts
+# K5-K7 run each product as three TF32 products (3xTF32): their bound counts
 # 3x the products at the TF32 rate.
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -715,22 +715,31 @@ FLASH_CASES = [  # (shape, dtype name, real_len, strided like the main path)
     ((2, 4, 65, 128), "float32", None, False),
     ((2, 4, 129, 128), "float32", None, True),
     ((2, 4, 200, 128), "float32", 100, True),
+    # the 3xTF32 K5 streams 32-row kv tiles at head_dim 32 and 64 and 16-row
+    # ones at 128 (real_len inside such a tile: 250, 100 and 100 above): S
+    # one row past a kv tile at each width, and one row past a 128-row block
+    # at head_dim 32 (129 at 64 and 65 at 128 are above)
+    ((2, 4, 33, 64), "float32", None, False),
+    ((2, 4, 33, 32), "float32", None, True),
+    ((2, 4, 129, 32), "float32", None, False),
+    ((2, 4, 17, 128), "float32", None, False),
 ]
 LORENZ_SHAPE = (LZ_BATCH, 4, 2001, 64)
 
 
 def phase_flash_plan(torch) -> None:
-    """K5's bf16, and K6's and K7's bf16 and fp32 launch plans as the kernels
-    report them equal ``flash_plan``, the Python mirror the CPU tests check."""
+    """K5's, K6's and K7's bf16 and fp32 launch plans as the kernels report
+    them equal ``flash_plan``, the Python mirror the CPU tests check."""
     import ctypes
 
     from viforsdes_tpu_torch.ops import flash_attention as fa
     from viforsdes_tpu_torch.ops.kernel_build import ATTENTION, raise_on
 
     lib = ATTENTION.get()
-    plans = [("fwd", torch.bfloat16, lib.flash_attn_fwd_plan)]
+    plans = []
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = int(dtype == torch.bfloat16)
+        plans.append(("fwd", dtype, lambda d, out, bf16=bf16: lib.flash_attn_fwd_plan(d, bf16, out)))
         plans.append(("dkv", dtype, lambda d, out, bf16=bf16: lib.flash_attn_bwd_plan(d, 0, bf16, out)))
         plans.append(("dq", dtype, lambda d, out, bf16=bf16: lib.flash_attn_bwd_plan(d, 1, bf16, out)))
     for kernel, dtype, fn in plans:
@@ -784,13 +793,13 @@ def phase_flash(torch) -> dict:
             key = ("K7" if name == "dq" else "K6") + sfx
             worst[key] = max(worst[key], e, e_auto)
         log(f"[K5-K7] {tag}: max |err| so far " + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
-        if shape == LORENZ_SHAPE:  # a second K6+K7 gives the same bits
-            again = fa.flash_backward(q, k, v, o, lse, do, valid, scale)
+        if shape == LORENZ_SHAPE:  # a second K5 and a second K6+K7 give the same bits
+            again = (*fa.flash_forward(q, k, v, valid, scale), *fa.flash_backward(q, k, v, o, lse, do, valid, scale))
             torch.cuda.synchronize()
-            for name, a, r in zip(("dq", "dk", "dv"), grads, again):
+            for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), again):
                 if not torch.equal(a, r):
-                    raise AssertionError(f"K6/K7 {name} {tag}: two runs differ")
-            log(f"[K6/K7] {tag}: two runs bitwise equal in dq, dk, dv")
+                    raise AssertionError(f"K5/K6/K7 {name} {tag}: two runs differ")
+            log(f"[K5-K7] {tag}: two runs bitwise equal in o, lse (K5) and dq, dk, dv (K6/K7)")
     return worst
 
 
@@ -988,8 +997,8 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     """K3-K7 and their plain versions at the Lorenz shape [32, 4, 2001, 64]
     bf16, q/k/v strided views of one projection as on the main path, beside
     their bounds and PyTorch's flash attention; K5-K7 again with fp32 inputs
-    (K5 in fp32 FMA, K6/K7 in 3xTF32) beside their plain versions and
-    PyTorch's memory-efficient attention.
+    (3xTF32) beside their plain versions and PyTorch's memory-efficient
+    attention.
     The plain and the library backward serve K6 and K7 together, so both
     carry their time."""
     from viforsdes_tpu_torch.ops import flash_attention as fa
@@ -1017,8 +1026,8 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         f"{FLASH_TURNS} turns (in order, then reversed), ms: "
         + "; ".join(f"{name} {turn_stats(w)}" for name, w in windows.items()))
 
-    # the same attention with fp32 inputs: K5's FMA kernel, the 3xTF32 K6
-    # and K7, and the library's memory-efficient attention, in as many turns
+    # the same attention with fp32 inputs: the 3xTF32 K5, K6 and K7, and the
+    # library's memory-efficient attention, in as many turns
     q32, k32, v32 = lorenz_heads(torch, shape, torch.float32, 80)
     do32 = do.float()
     o32, lse32 = fa._forward_cuda(q32, k32, v32, s, scale)
@@ -1065,17 +1074,19 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
         "K5": bound(2 * product, nbytes(q, k, v, o, lse), "bf16"),
         "K6": bound(4 * product, nbytes(q, k, v, do, lse_di, dk, dv), "bf16"),
         "K7": bound(3 * product, nbytes(q, k, v, do, lse_di, dq), "bf16"),
-        "K5 fp32": bound(2 * product, nbytes(q32, k32, v32, o32, lse32), "fp32"),
+        "K5 fp32": bound(3 * 2 * product, nbytes(q32, k32, v32, o32, lse32), "tf32"),
         "K6 fp32": bound(3 * 4 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dk32, dv32), "tf32"),
         "K7 fp32": bound(3 * 3 * product, nbytes(q32, k32, v32, do32, operands32[1][4:], dq32), "tf32"),
     }
     # the same products once in fp32 FMA, outside the tensor cores
-    fma = {"K6 fp32": bound(4 * product, bounds["K6 fp32"]["bytes"], "fp32"),
+    fma = {"K5 fp32": bound(2 * product, bounds["K5 fp32"]["bytes"], "fp32"),
+           "K6 fp32": bound(4 * product, bounds["K6 fp32"]["bytes"], "fp32"),
            "K7 fp32": bound(3 * product, bounds["K7 fp32"]["bytes"], "fp32")}
     t["flash_fwd_tflops"] = 2 * product / t["flash_fwd_ms"] / 1e9
     t["flash_bwd_tflops"] = 7 * product / t["flash_bwd_ms"] / 1e9
-    log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: K5 FMA, K6/K7 3xTF32): " + json.dumps(t))
-    for k, key in (("K6 fp32", "flash_bwd_dkv_fp32_ms"), ("K7 fp32", "flash_bwd_dq_fp32_ms")):
+    log("[times] attention at [32, 4, 2001, 64] bf16 (fp32: K5-K7 3xTF32): " + json.dumps(t))
+    for k, key in (("K5 fp32", "flash_fwd_fp32_ms"), ("K6 fp32", "flash_bwd_dkv_fp32_ms"),
+                   ("K7 fp32", "flash_bwd_dq_fp32_ms")):
         log(f"[fp32 bounds] {k}: {t[key]:.4f} ms; 3xTF32 bound {bounds[k]['bound_ms']:.4f} ms "
             f"({bounds[k]['bound_ms'] / t[key]:.4f} of it), FMA bound {fma[k]['bound_ms']:.4f} ms "
             f"({fma[k]['bound_ms'] / t[key]:.4f})")
@@ -1083,7 +1094,7 @@ def phase_attention_times(torch) -> tuple[dict, dict]:
     log(f"[library] fp32: K6 {t['flash_bwd_dkv_fp32_ms']:.4f} + K7 {t['flash_bwd_dq_fp32_ms']:.4f} = "
         f"{k6k7_32:.4f} ms against the library's memory-efficient backward {t['library_bwd_fp32_ms']:.4f}: "
         f"{k6k7_32 / t['library_bwd_fp32_ms']:.3f}x; K5 {t['flash_fwd_fp32_ms']:.4f} against its forward "
-        f"{t['library_fwd_fp32_ms']:.4f}")
+        f"{t['library_fwd_fp32_ms']:.4f}: {t['flash_fwd_fp32_ms'] / t['library_fwd_fp32_ms']:.3f}x")
     k6k7, k6k7_before = t["flash_bwd_dkv_ms"] + t["flash_bwd_dq_ms"], MMA_SYNC_MS["K6"] + MMA_SYNC_MS["K7"]
     for k in ("K3", "K4"):
         key = "fwd" if k == "K3" else "bwd"
@@ -1763,7 +1774,7 @@ KERNEL_NAMES = {
     "K2": r"sde_sampler::bptt_(cluster_)?kernel",
     "K3": r"qk_prep::qk_prep_kernel<.*, false>",
     "K4": r"qk_prep::qk_prep_kernel<.*, true>",
-    "K5": r"flash::fwd_(wgmma_)?kernel",
+    "K5": r"flash::fwd_(wgmma|tf32)_kernel",
     "K6": r"flash::dkv_(wgmma|tf32)_kernel",
     "K7": r"flash::dq_(wgmma|tf32)_kernel",
 }
@@ -1925,9 +1936,9 @@ def phase_graph_lorenz(torch, vt, compute_dtype: str = "bfloat16") -> dict:
 def phase_fp32(torch, vt) -> dict:
     """``[fp32]``: the Lorenz-63 long grid at full width with
     ``TrainingConfig(compute_dtype="float32")``: the encoder's attention runs
-    K5 (fp32 FMA) and the 3xTF32 K6/K7. ``phase_graph``'s graph of 5 steps
-    against one step a call from one seed, with every kernel's launches over
-    both ``train()`` runs; fails unless K6 and K7 ran."""
+    the 3xTF32 K5, K6 and K7. ``phase_graph``'s graph of 5 steps against one
+    step a call from one seed, with every kernel's launches over both
+    ``train()`` runs; fails unless K5, K6 and K7 ran."""
     t0 = time.perf_counter()
     out = phase_graph_lorenz(torch, vt, "float32")
     n = out["launches"]
@@ -2415,7 +2426,7 @@ def main() -> int:
          att["flash_bwd_dkv_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
         ("K7", "flash_attn_bwd_dq", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:159",
          att["flash_bwd_dq_ms"], att["flash_bwd_plain_ms"], att["library_bwd_ms"]),
-        # fp32 inputs (the [fp32] path): K5's FMA kernel, K6/K7 in 3xTF32
+        # fp32 inputs (the [fp32] path): K5-K7 in 3xTF32
         ("K5 fp32", "flash_attn_fwd_fp32", "flash_attn_fwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:362",
          att["flash_fwd_fp32_ms"], att["flash_fwd_plain_fp32_ms"], att["library_fwd_fp32_ms"]),
         ("K6 fp32", "flash_attn_bwd_dkv_fp32", "flash_attn_bwd.cu", "viforsdes_tpu/ops/pallas/flash_fixed.py:574",

@@ -43,6 +43,7 @@ def _rows():
         (12, 6, 2, torch.float32, "tf32", 1.590, "operations"),  # K6 in 3xTF32: 3 x 262.4 GFLOP
         (9, 5, 2, torch.float32, "tf32", 1.193, "operations"),   # K7 in 3xTF32: 3 x 196.8 GFLOP
         (2, 4, 1, torch.float32, "fp32", 1.96, "operations"),    # K5 on fp32 FMA
+        (6, 4, 1, torch.float32, "tf32", 0.795, "operations"),   # K5 in 3xTF32: 3 x 131.2 GFLOP
         (0, 2, 0, torch.bfloat16, "fp32", 0.0196, "bytes"),      # K3: 65.6 MB, x -> out
         (0, 3, 0, torch.bfloat16, "fp32", 0.0294, "bytes"),      # K4: 98.4 MB, x, dy -> dx
     ],

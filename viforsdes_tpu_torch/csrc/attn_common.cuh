@@ -1,10 +1,10 @@
 // Shared definitions of the attention kernels (qk_prep.cu, flash_attn_fwd.cu,
-// flash_attn_bwd.cu): element types, loads that convert to fp32, stores that
-// round from fp32, and rounding to the input type.
+// flash_attn_bwd.cu): element types, the store that rounds from fp32,
+// rounding to the input type, and the shared-memory opt-in.
 //
 // Tensors are [B, H, S, D] views given by element strides of their first
 // three axes; the last axis (D) has unit stride. The wrappers check that every
-// stride and base address allows the vector loads used here.
+// stride and base address allows the kernels' vector loads and TMA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,36 +44,7 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Four consecutive elements, converted to fp32 (16 bytes of fp32, 8 of bf16).
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float* out);
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float* in);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, const float* in) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(in[0], in[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(in[2], in[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
+// Two consecutive elements, rounded from fp32.
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b);
 template <>

@@ -1,30 +1,23 @@
 // Shared definitions of the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the arguments, the mask and its tile shortcut, the
 // block shape and the accumulator store of the wgmma kernels (K5-K7 for bf16
-// inputs, K6 and K7 for fp32 inputs; hopper.cuh), and the tile loaders of the
-// fp32 FMA kernel (K5 for fp32 inputs).
-//
-// The FMA kernel works on 64 x 64 tiles of the [S, S] logits of one (batch,
-// head) with 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows
-// 4*ty .. 4*ty+3 and columns 4*tx .. 4*tx+3 of a tile, and rows 4*ty .. of the
-// [64, D] accumulators with D/16 of their columns. Operands live in shared
-// memory as fp32 (converted on load), the products are plain fp32 FMA over
-// float4 reads: operands read along a tile's rows are stored transposed,
-// [D][64 + 4], so each thread reads four consecutive rows at once.
+// and for fp32 inputs; hopper.cuh), and what the 3xTF32 kernels (K5-K7 for
+// fp32 inputs) share: the producer warpgroup's stagers, which split a TMA
+// tile into tf32 hi and lo in place and write its transpose, the register A
+// fragments of a fixed tile, and the product of split accumulator fragments
+// with a transposed tile.
 #pragma once
 
 #include <math_constants.h>
 
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace flash {
 
 using attn::MutView;
 using attn::View;
 
-constexpr int kTile = 64;          // rows of a q tile and of a kv tile
-constexpr int kThreads = 256;
-constexpr int kLdt = kTile + 4;    // row stride of a transposed tile
 // DEFAULT_MASK_VALUE of the Pallas flash kernel: finite, so a fully masked
 // tile gives exp(0) = 1 rather than NaN, and a later real key zeroes it.
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
@@ -92,117 +85,79 @@ __device__ __forceinline__ void store_acc16(const MutView& out, int b, int h, in
   }
 }
 
-// Rows row0 .. row0+63 of a [B, H, S, D] view into dst[d * kLdt + r]
-// (transposed); rows at or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(const View& v, int b, int h, int row0, int S,
-                                            float* dst) {
-  for (int i = threadIdx.x; i < kTile * (D / 4); i += kThreads) {
-    const int r = i % kTile, c = (i / kTile) * 4;
-    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (row0 + r < S) attn::load4<T>(attn::row_ptr<T>(v, b, h, row0 + r) + c, x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(c + e) * kLdt + r] = x[e];
-  }
-}
+// ---------------------------------------------------------------- fp32 inputs (3xTF32)
 
-// The same rows into dst[r * D + d] (row-major).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const View& v, int b, int h, int row0, int S,
-                                          float* dst) {
-  for (int i = threadIdx.x; i < kTile * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (row0 + r < S) attn::load4<T>(attn::row_ptr<T>(v, b, h, row0 + r) + c, x);
-    *reinterpret_cast<float4*>(dst + r * D + c) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
+// The fp32 kernels' producer warpgroup: warp 0 issues the TMA loads (in K6
+// its lanes also copy lse and di), warps 1-3 are the stagers, kStagers
+// threads. The registers the producer hands over: 128 x 56 + 256 x 224 fit
+// the 384 x 168 a block of three warpgroups is launched with.
+constexpr int kStagers = 96;
+constexpr unsigned kProducerRegs32 = 56;
+constexpr unsigned kConsumerRegs32 = 224;
 
-// acc[i][j] += sum over the tile's 64 rows c of a_t[c][4*ty + i] * m[c][col j],
-// where a_t is [64][kLdt] and m is row-major [64][D]. Column j of thread
-// column tx: groups of four consecutive columns, 64 apart (D >= 64), so a
-// warp's float4 reads of m cover 256 contiguous bytes; two columns at D = 32.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16], const float* a_t,
-                                           const float* m, int ty, int tx) {
-  constexpr int DPT = D / 16;
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    const float4 av = *reinterpret_cast<const float4*>(a_t + c * kLdt + ty * 4);
-    const float a4[4] = {av.x, av.y, av.z, av.w};
-    float mv[DPT];
-    if constexpr (DPT >= 4) {
+// Split rows 0 .. R - 1 of a Tile32<D> of R rows (TMA wrote them into its hi
+// part) into hi and lo in place, as stager tid of kStagers; with T, also write
+// them to t, a Tile32<R> of D rows: row d, depth position tf32_depth_pos(r),
+// hi and lo. Each thread takes 16-byte chunks of four columns of one row;
+// neighbouring threads take neighbouring rows. (Blocks of 4 x 4, stored 16
+// bytes at a time to t, ran slower.)
+template <int D, int R, bool T>
+__device__ __forceinline__ void stage_tile(float* tile, float* t, int tid) {
+  using L = hopper::Tile32<D>;
+  using LT = hopper::Tile32<R>;
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+  unsigned char* t_base = reinterpret_cast<unsigned char*>(t);
+  for (int i = tid; i < R * (D / 4); i += kStagers) {
+    const int r = i % R, c = 4 * (i / R);
+    float4* hi_p = reinterpret_cast<float4*>(base + L::template offset<R>(r, c));
+    const float4 x4 = *hi_p;
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    float hi[4], lo[4];
 #pragma unroll
-      for (int g = 0; g < DPT / 4; ++g) {
-        const float4 x = *reinterpret_cast<const float4*>(m + c * D + g * 64 + tx * 4);
-        mv[4 * g] = x.x; mv[4 * g + 1] = x.y; mv[4 * g + 2] = x.z; mv[4 * g + 3] = x.w;
+    for (int e = 0; e < 4; ++e) hopper::tf32_split(x[e], hi[e], lo[e]);
+    *hi_p = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    hi_p[R * L::kPitch / 16] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (T) {
+      const int pos = hopper::tf32_depth_pos(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* p = reinterpret_cast<float*>(t_base + LT::template offset<D>(c + e, pos));
+        p[0] = hi[e];
+        p[D * LT::kPitch / 4] = lo[e];
       }
-    } else {
-      const float2 x = *reinterpret_cast<const float2*>(m + c * D + tx * DPT);
-      mv[0] = x.x; mv[1] = x.y;
     }
+  }
+}
+
+// The A fragments of one warp's 16 rows from row0 of a Tile32<D> of R rows
+// (hi part), every depth step: rows g and g + 8, columns t and t + 4 of
+// each 8-column step (hopper.cuh), read once.
+template <int D, int R>
+__device__ __forceinline__ void a_from_tile(uint32_t (&a)[D / 8][4], const float* tile, int row0, int lane) {
+  using L = hopper::Tile32<D>;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(a4[i], mv[j], acc[i][j]);
+      const int row = row0 + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(base + L::template offset<R>(row, col));
     }
   }
 }
 
-// s[i][j] = sum_d a_t[d][4*ty + i] * b_t[d][4*tx + j] over both [D][kLdt] tiles.
-template <int D>
-__device__ __forceinline__ void tile_product(float (&s)[4][4], const float* a_t,
-                                             const float* b_t, int ty, int tx) {
+// d += a b over a tile's BQ depth rows in 3xTF32: a the hi and lo fragments
+// from registers, b a Tile32<BQ> of D rows (hi, lo; depth permuted).
+template <int D, int BQ>
+__device__ __forceinline__ void grad_tf32(float (&d)[D / 2], const uint32_t (&ah)[BQ / 8][4],
+                                          const uint32_t (&al)[BQ / 8][4], const float* b) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-  }
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(a_t + d * kLdt + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(b_t + d * kLdt + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-  }
-}
-
-// Store rows 4*ty + i of a [64, D] accumulator (times row_scale[i]) to the
-// view, rows at or past S skipped.
-template <typename T, int D>
-__device__ __forceinline__ void store_acc(const MutView& out, int b, int h, int row0, int S,
-                                          const float (&acc)[4][D / 16], const float* row_scale,
-                                          int ty, int tx) {
-  constexpr int DPT = D / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= S) continue;
-    T* p = attn::row_ptr<T>(out, b, h, row);
-    if constexpr (DPT >= 4) {
-#pragma unroll
-      for (int g = 0; g < DPT / 4; ++g) {
-        float x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * g + e] * row_scale[i];
-        attn::store4<T>(p + g * 64 + tx * 4, x);
-      }
-    } else {
-      attn::store2<T>(p + tx * DPT, acc[i][0] * row_scale[i], acc[i][1] * row_scale[i]);
-    }
-  }
-}
-
-// Write a 4 x 4 register tile transposed: dst[(4*tx + j) * kLdt + 4*ty + i].
-__device__ __forceinline__ void store_tile_t(float* dst, const float (&t)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    *reinterpret_cast<float4*>(dst + (tx * 4 + j) * kLdt + ty * 4) =
-        make_float4(t[0][j], t[1][j], t[2][j], t[3][j]);
+  for (int kk = 0; kk < BQ / 8; ++kk) {
+    const uint64_t bh = hopper::desc_k32<BQ, D>(b, 0, kk), bl = hopper::desc_k32<BQ, D>(b, D, kk);
+    hopper::mma_rs_tf32<D>(d, ah[kk], bh);
+    hopper::mma_rs_tf32<D>(d, ah[kk], bl);
+    hopper::mma_rs_tf32<D>(d, al[kk], bh);
   }
 }
 

@@ -616,48 +616,6 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------------- fp32 path (3xTF32)
 
-// The fp32 kernels' producer warpgroup: warp 0 issues the TMA loads (in K6
-// its lanes also copy lse and di), warps 1-3 are the stagers, kStagers
-// threads. The registers the producer hands over: 128 x 56 + 256 x 224 fit
-// the 384 x 168 a block of three warpgroups is launched with.
-constexpr int kStagers = 96;
-constexpr unsigned kProducerRegs32 = 56;
-constexpr unsigned kConsumerRegs32 = 224;
-
-// Split rows 0 .. R - 1 of a Tile32<D> of R rows (TMA wrote them into its hi
-// part) into hi and lo in place, as stager tid of kStagers; with T, also write
-// them to t, a Tile32<R> of D rows: row d, depth position tf32_depth_pos(r),
-// hi and lo. Each thread takes 16-byte chunks of four columns of one row;
-// neighbouring threads take neighbouring rows. (Blocks of 4 x 4, stored 16
-// bytes at a time to t, ran slower.)
-template <int D, int R, bool T>
-__device__ __forceinline__ void stage_tile(float* tile, float* t, int tid) {
-  using L = hopper::Tile32<D>;
-  using LT = hopper::Tile32<R>;
-  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
-  unsigned char* t_base = reinterpret_cast<unsigned char*>(t);
-  for (int i = tid; i < R * (D / 4); i += kStagers) {
-    const int r = i % R, c = 4 * (i / R);
-    float4* hi_p = reinterpret_cast<float4*>(base + L::template offset<R>(r, c));
-    const float4 x4 = *hi_p;
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-    float hi[4], lo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) hopper::tf32_split(x[e], hi[e], lo[e]);
-    *hi_p = make_float4(hi[0], hi[1], hi[2], hi[3]);
-    hi_p[R * L::kPitch / 16] = make_float4(lo[0], lo[1], lo[2], lo[3]);
-    if constexpr (T) {
-      const int pos = hopper::tf32_depth_pos(r);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float* p = reinterpret_cast<float*>(t_base + LT::template offset<D>(c + e, pos));
-        p[0] = hi[e];
-        p[D * LT::kPitch / 4] = lo[e];
-      }
-    }
-  }
-}
-
 // K6's plan for fp32 inputs at head_dim D: kRows kv rows a block (kGroups
 // consumer warpgroups), kQ q rows a stage. Shared memory: k and v of the
 // block (hi and lo), the ring of (q, do, q^T, do^T; each hi and lo), the
@@ -709,20 +667,6 @@ __device__ __forceinline__ void dkv_scores_tf32(float (&s)[BQ / 2], float (&dp)[
     hopper::mma_ss_tf32<BQ>(dp, vh, oh, kk);
     hopper::mma_ss_tf32<BQ>(dp, vh, ol, 1);
     hopper::mma_ss_tf32<BQ>(dp, vl, oh, 1);
-  }
-}
-
-// d += a b over a tile's BQ depth rows in 3xTF32: a the hi and lo fragments
-// from registers, b a Tile32<BQ> of D rows (hi, lo; depth permuted).
-template <int D, int BQ>
-__device__ __forceinline__ void grad_tf32(float (&d)[D / 2], const uint32_t (&ah)[BQ / 8][4],
-                                          const uint32_t (&al)[BQ / 8][4], const float* b) {
-#pragma unroll
-  for (int kk = 0; kk < BQ / 8; ++kk) {
-    const uint64_t bh = hopper::desc_k32<BQ, D>(b, 0, kk), bl = hopper::desc_k32<BQ, D>(b, D, kk);
-    hopper::mma_rs_tf32<D>(d, ah[kk], bh);
-    hopper::mma_rs_tf32<D>(d, ah[kk], bl);
-    hopper::mma_rs_tf32<D>(d, al[kk], bh);
   }
 }
 
@@ -947,24 +891,6 @@ struct DqPlan32 {
   static constexpr size_t kSmem = 1024 + kQoBytes + kStages * kStageBytes + 8 * kBarriers;
   static_assert(hopper::Tile32<kKv>::template bytes<D>() == kTile, "k^T takes a tile's bytes");
 };
-
-// The A fragments of one warp's 16 rows from row0 of a Tile32<D> of R rows
-// (hi part), every depth step: rows g and g + 8, columns t and t + 4 of
-// each 8-column step (hopper.cuh), read once.
-template <int D, int R>
-__device__ __forceinline__ void a_from_tile(uint32_t (&a)[D / 8][4], const float* tile, int row0, int lane) {
-  using L = hopper::Tile32<D>;
-  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
-      a[kk][i] = *reinterpret_cast<const uint32_t*>(base + L::template offset<R>(row, col));
-    }
-  }
-}
 
 // s = q k^T, then dp = do v^T of one tile in 3xTF32, each its own commit
 // group: q and do the warpgroup's 64 rows of the block's Tile32 of R rows

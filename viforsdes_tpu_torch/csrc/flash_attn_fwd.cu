@@ -6,8 +6,9 @@
 //   s = (q k^T) * scale in fp32, masked to kMaskValue where a key is past S
 //       or in the other segment (tokens at or past real_len);
 //   o = softmax(s) v with the running max m and sum l, p rounded to v's dtype
-//       before p v as the Pallas kernel does; lse = m + log l is saved for
-//       the backward (one fp32 per row in place of the TPU's 128-lane l, m).
+//       before p v as the Pallas kernel does (bf16; fp32 p stays fp32);
+//       lse = m + log l is saved for the backward (one fp32 per row in place
+//       of the TPU's 128-lane l, m).
 //
 // What bounds it on an H100: arithmetic. At the Lorenz shape [32, 4, 2001, 64]
 // one q k^T is 2*B*H*S^2*D = 65.6 GFLOP and the forward does two such
@@ -42,9 +43,38 @@
 // needs nothing: the tensor map zero-fills rows past S and the masks drop
 // them.
 //
-// fp32 inputs keep the first design, fp32-exact: tiles converted to fp32 in
-// shared memory, both products fp32 FMA over 4 x 4 register tiles, p through
-// shared memory; the ragged tail zero-filled on load and masked.
+// fp32 inputs run the same structure on the tensor cores at fp32 accuracy
+// (fwd_tf32_kernel): both products in 3xTF32, a b = a_hi b_hi + a_hi b_lo +
+// a_lo b_hi with hi = tf32(x) and lo = tf32(x - hi), three m64nNk8 tf32
+// wgmma into one fp32 accumulator (hopper.cuh), as K6 and K7 do for fp32
+// (flash_attn_bwd.cu). Bound: 3 x 131.2 GFLOP at the Lorenz shape, 0.795 ms
+// at 495 TFLOP/s of dense TF32. What the design does about what differs from
+// bf16:
+//   - tf32 wgmma has no transpose: p v reads v MN-major in bf16, which tf32
+//     cannot. The producer warpgroup's warps 1-3 (stagers, kStagers in
+//     flash_attn.cuh) wait for each k and v tile TMA brings, split k into hi
+//     and lo in place (lo in the tile's second half: Tile32) and v straight
+//     into v^T, hi and lo, with the kv depth permuted to meet p's
+//     accumulator as A fragment (tf32_depth_pos), then release the stage on
+//     a second barrier (ready). q k^T is K-major on both sides, so k needs no
+//     transpose. The staging bounds the kernel more than the products do
+//     (with it cut out K5 ran in 0.61 of the time): each stager takes k's
+//     and v's chunk in one pass, two independent chains (stage_kv), and v
+//     lands as TMA's rows alone, so that four stages fit.
+//   - q arrives once a block and is split in place; at head_dim 32 and 64
+//     each consumer warp reads its hi part once as register A fragments
+//     (a_from_tile), so s reads only q's lo part and k from shared memory
+//     (at 128 the registers go to o, and q stays in shared memory).
+//   - p is split into hi and lo A fragments straight from the accumulator
+//     (a_split_from_acc): unrounded, as the fp32 Pallas kernel takes it.
+//   - Shared memory: q with its lo part takes 64 KB at head_dim 64, a stage
+//     (k and v^T, each hi and lo, and v) 40 KB at 32-row kv tiles: four
+//     stages; 32 rows ran 9% faster than 16 (half the rescales of o per
+//     score, and q's lo part read once for twice the keys). At head_dim 128
+//     one consumer warpgroup owns 64 rows and streams 16-row tiles
+//     (FwdPlan32, mirrored by flash_plan).
+// The online softmax, the overlap of tile j's s with tile j - 1's p v, the
+// epilogue and the ragged tail are the bf16 kernel's.
 
 #include <type_traits>
 
@@ -52,89 +82,6 @@
 #include "hopper.cuh"
 
 namespace flash {
-
-// K5 for fp32 inputs: fp32 FMA.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* q_t = smem;                // [D][kLdt]
-  float* k_t = q_t + D * kLdt;      // [D][kLdt]
-  float* v_s = k_t + D * kLdt;      // [64][D]
-  float* p_t = v_s + kTile * D;     // [64 kv][kLdt]
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = a.S;
-
-  load_tile_t<T, D>(a.q, b, h, q0, S, q_t);
-
-  float acc[4][DPT];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int kv0 = 0; kv0 < S; kv0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_t<T, D>(a.k, b, h, kv0, S, k_t);
-    load_tile<T, D>(a.v, b, h, kv0, S, v_s);
-    __syncthreads();
-
-    float s[4][4];
-    tile_product<D>(s, q_t, k_t, ty, tx);
-
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool keep = visible(row, kv0 + tx * 4 + j, S, a.real_len);
-        s[i][j] = keep ? s[i][j] * a.scale : kMaskValue;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the row's 64 columns are spread over the 16 lanes with this ty
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile (m = -inf)
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        rs += e;
-        p[i][j] = attn::round_to<T>(e);  // p cast to v's dtype before p v
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-    }
-    store_tile_t(p_t, p, ty, tx);
-    __syncthreads();
-    accumulate<D>(acc, p_t, v_s, ty, tx);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) inv[i] = l[i] == 0.0f ? 1.0f : 1.0f / l[i];  // the l == 0 guard
-  store_acc<T, D>(a.o, b, h, q0, S, acc, inv, ty, tx);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      if (row < S) a.lse[(static_cast<long long>(b) * a.H + h) * S + row] = m[i] + logf(l[i]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -384,21 +331,290 @@ cudaError_t launch_wgmma(const FwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- fp32 path (3xTF32)
+
+// K5's plan for fp32 inputs at head_dim D: kRows q rows a block (kGroups
+// consumer warpgroups), kKv kv rows a stage. Shared memory: q of the block
+// (hi and lo), the ring of (k and v^T, each hi and lo; v as TMA writes it),
+// then the barriers, after up to 1024 bytes that align the tiles
+// (flash_plan in ops/flash_attention.py mirrors this).
+template <int D>
+struct FwdPlan32 {
+  static constexpr int kGroups = D == 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kGroups;
+  static constexpr int kThreads = 128 * (kGroups + 1);
+  static constexpr int kKv = D == 128 ? 16 : 32;
+  static constexpr int kStages = 4;
+  // q's hi part as register A fragments (D / 2 registers a thread), read
+  // once a block: s then reads only q's lo part and k from shared memory.
+  // At head_dim 128 the registers go to o.
+  static constexpr bool kRegA = D <= 64;
+  static constexpr int kTile = hopper::Tile32<D>::template bytes<kKv>();
+  static constexpr int kQBytes = hopper::Tile32<D>::template bytes<kRows>();
+  // v lands as TMA's kKv rows alone, D / 32 column blocks of kKv rows: the
+  // layout of the hi part of a Tile32<D> of kKv / 2 rows
+  static constexpr int kLanding = kKv * D * 4;
+  static constexpr int kStageBytes = 2 * kTile + kLanding;
+  static constexpr int kTmaBytes = 2 * kKv * D * 4;  // k and v by TMA
+  static constexpr int kBarriers = 2 + 3 * kStages;
+  static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes + 8 * kBarriers;
+  static_assert(hopper::Tile32<kKv>::template bytes<D>() == kTile, "v^T takes a tile's bytes");
+};
+
+// s = q k^T of one tile in 3xTF32: q the warpgroup's 64 rows of the block's
+// Tile32 of R rows (with kRegA its hi part from registers, qa), k the tile's
+// BK rows (hi and lo, K-major); s is not read (the first depth step
+// overwrites it).
+template <int D, int BK, int R, bool kRegA, int KA>
+__device__ __forceinline__ void fwd_scores_tf32(float (&s)[BK / 2], const float* q_s, const uint32_t (&qa)[KA][4],
+                                                const float* k, int wg) {
+  const int hi = 64 * wg, lo = R + 64 * wg;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t ql = hopper::desc_k32<D, R>(q_s, lo, kk);
+    const uint64_t kh = hopper::desc_k32<D, BK>(k, 0, kk), kl = hopper::desc_k32<D, BK>(k, BK, kk);
+    if constexpr (kRegA) {
+      hopper::mma_rs_tf32<BK>(s, qa[kk], kh, kk);
+      hopper::mma_rs_tf32<BK>(s, qa[kk], kl, 1);
+    } else {
+      const uint64_t qh = hopper::desc_k32<D, R>(q_s, hi, kk);
+      hopper::mma_ss_tf32<BK>(s, qh, kh, kk);
+      hopper::mma_ss_tf32<BK>(s, qh, kl, 1);
+    }
+    hopper::mma_ss_tf32<BK>(s, ql, kh, 1);
+  }
+}
+
+// The stagers' work on one stage, as stager tid of kStagers: split k (a
+// Tile32<D> of R rows, TMA wrote its hi part) into hi and lo in place, and v
+// (its landing tile, FwdPlan32::kLanding) into t, a Tile32<R> of D rows: row
+// d, depth position tf32_depth_pos(r), hi and lo. Each thread takes the same
+// 16-byte chunk of k and of v, two independent chains (the two tiles one
+// after the other, as stage_tile does them, ran 11% slower).
+template <int D, int R>
+__device__ __forceinline__ void stage_kv(float* k, const float* v, float* t, int tid) {
+  using L = hopper::Tile32<D>;
+  using LT = hopper::Tile32<R>;
+  unsigned char* k_base = reinterpret_cast<unsigned char*>(k);
+  const unsigned char* v_base = reinterpret_cast<const unsigned char*>(v);
+  unsigned char* t_base = reinterpret_cast<unsigned char*>(t);
+  for (int i = tid; i < R * (D / 4); i += kStagers) {
+    const int r = i % R, c = 4 * (i / R);
+    float4* kp = reinterpret_cast<float4*>(k_base + L::template offset<R>(r, c));
+    const float4 k4 = *kp;
+    const float4 v4 = *reinterpret_cast<const float4*>(v_base + L::template offset<R / 2>(r, c));
+    const float kx[4] = {k4.x, k4.y, k4.z, k4.w}, vx[4] = {v4.x, v4.y, v4.z, v4.w};
+    float kh[4], kl[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hopper::tf32_split(kx[e], kh[e], kl[e]);
+    *kp = make_float4(kh[0], kh[1], kh[2], kh[3]);
+    kp[R * L::kPitch / 16] = make_float4(kl[0], kl[1], kl[2], kl[3]);
+    const int pos = hopper::tf32_depth_pos(r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float hi, lo;
+      hopper::tf32_split(vx[e], hi, lo);
+      float* p = reinterpret_cast<float*>(t_base + LT::template offset<D>(c + e, pos));
+      p[0] = hi;
+      p[D * LT::kPitch / 4] = lo;
+    }
+  }
+}
+
+// K5 for fp32 inputs: o and lse of kRows q rows, 64 per consumer warpgroup.
+template <int D>
+__global__ void __launch_bounds__(FwdPlan32<D>::kThreads, 1) fwd_tf32_kernel(const FwdArgs a,
+                                                                             const __grid_constant__ FwdMaps maps) {
+  using P = FwdPlan32<D>;
+  constexpr int BK = P::kKv, ST = P::kStages, R = P::kRows, CW = 4 * P::kGroups;
+  constexpr int NS = BK / 2, NO = D / 2, KK = BK / 8;  // floats a thread: s, o; depth steps of p v
+  extern __shared__ __align__(1024) unsigned char smem_tf[];
+  unsigned char* base = hopper::align1024(smem_tf);
+  float* q_s = reinterpret_cast<float*>(base);  // Tile32<D> of R q rows
+  unsigned char* ring = base + P::kQBytes;      // [ST] x (k, v^T, v)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + ST * P::kStageBytes);
+  uint64_t* q_full = bars;       // q has arrived
+  uint64_t* q_ready = bars + 1;  // and is split
+  uint64_t* full = bars + 2;     // [ST]: the stage's k and v have arrived
+  uint64_t* ready = full + ST;   // [ST]: k split, v^T written
+  uint64_t* empty = ready + ST;  // [ST]: every consumer warp is done with it
+  auto operand = [&](int st, int which) {  // 0 k, 1 v^T, 2 v (kLanding bytes)
+    return reinterpret_cast<float*>(ring + st * P::kStageBytes + which * P::kTile);
+  };
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0), lane = threadIdx.x % 32;
+  const int S = a.S, n_tiles = (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::bar_init(q_full, 1);
+    hopper::bar_init(q_ready, kStagers);
+    for (int st = 0; st < ST; ++st) {
+      hopper::bar_init(full + st, 1);
+      hopper::bar_init(ready + st, kStagers);
+      hopper::bar_init(empty + st, CW);
+    }
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= CW) {  // the producer warpgroup
+    if constexpr (P::kGroups == 2) hopper::regs_dec<kProducerRegs32>();
+    if (warp == CW) {
+      if (lane == 0) {
+        hopper::prefetch_map(&maps.k);
+        hopper::prefetch_map(&maps.v);
+        hopper::bar_arrive_expect_tx(q_full, R * D * 4);
+        hopper::tma_rows32<D, R>(q_s, &maps.q, q_full, q0, h, b);
+        for (int j = 0; j < n_tiles; ++j) {
+          const int st = j % ST;
+          if (j >= ST) hopper::bar_wait(empty + st, (j / ST - 1) & 1);
+          hopper::bar_arrive_expect_tx(full + st, P::kTmaBytes);
+          hopper::tma_rows32<D, BK>(operand(st, 0), &maps.k, full + st, j * BK, h, b);
+          hopper::tma_rows32<D, BK / 2>(operand(st, 2), &maps.v, full + st, j * BK, h, b);  // kLanding
+        }
+      }
+    } else {  // the stagers
+      const int tid = static_cast<int>(threadIdx.x) - 32 * (CW + 1);
+      hopper::bar_wait(q_full, 0);
+      stage_tile<D, R, false>(q_s, nullptr, tid);
+      hopper::proxy_fence();
+      hopper::bar_arrive(q_ready);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % ST;
+        hopper::bar_wait(full + st, (j / ST) & 1);
+        stage_kv<D, BK>(operand(st, 0), operand(st, 2), operand(st, 1), tid);
+        hopper::proxy_fence();
+        hopper::bar_arrive(ready + st);
+      }
+    }
+  } else {
+    // a consumer warpgroup: q rows qw .. qw + 63, this warp's 16 from qw + wrow
+    if constexpr (P::kGroups == 2) hopper::regs_inc<kConsumerRegs32>();
+    const int wg = warp / 4, qw = q0 + 64 * wg, wrow = 16 * (warp % 4);
+    const float scale2 = a.scale * kLog2e;  // s in base-2 units
+
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+    // running max (base 2) and this lane's share of the running sum, rows g, g + 8
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f}, alpha[2];
+    uint32_t ph[KK][4], pl[KK][4];  // hi and lo of p of the tile whose p v is next
+    hopper::bar_wait(q_ready, 0);
+    constexpr int KA = P::kRegA ? D / 8 : 1;
+    uint32_t qa[KA][4];  // with kRegA: the hi A fragments of this warp's q rows
+    if constexpr (P::kRegA) a_from_tile<D, R>(qa, q_s, 64 * wg + wrow, lane);
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + st);
+    };
+    auto softmax = [&](float (&s)[NS], int j) {  // p of tile j in place of s
+      const int kv0 = j * BK;
+      online_softmax(s, m, l, alpha, !all_visible(qw, qw + 64, kv0, kv0 + BK, S, a.real_len), qw + wrow, kv0, S,
+                     a.real_len, scale2, lane);
+    };
+    auto pack = [&](const float (&s)[NS]) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) hopper::a_split_from_acc(ph[kk], pl[kk], s + 4 * kk);
+    };
+
+    // tile 0: its scores and softmax alone
+    {
+      float s[NS];
+      hopper::bar_wait(ready, 0);
+      hopper::wg_fence();
+      fwd_scores_tf32<D, BK, R, P::kRegA>(s, q_s, qa, operand(0, 0), wg);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(s);
+      softmax(s, 0);
+      pack(s);
+    }
+    // tile j's scores are issued with tile j - 1's p v, and its softmax runs
+    // while that product is on the tensor cores
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, prev = (j - 1) % ST;
+      float s[NS];
+      hopper::bar_wait(ready + st, (j / ST) & 1);
+      hopper::fence_regs(o);
+      hopper::fence_regs(ph);
+      hopper::fence_regs(pl);
+      hopper::wg_fence();
+      fwd_scores_tf32<D, BK, R, P::kRegA>(s, q_s, qa, operand(st, 0), wg);
+      hopper::wg_commit();
+      grad_tf32<D, BK>(o, ph, pl, operand(prev, 1));
+      hopper::wg_commit();
+      hopper::wg_wait<1>();  // the scores
+      hopper::fence_regs(s);
+      softmax(s, j);
+      hopper::wg_wait<0>();  // p v of tile j - 1
+      hopper::fence_regs(o);
+      hopper::fence_regs(ph);
+      hopper::fence_regs(pl);
+      release(prev);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack(s);
+    }
+    // the last tile's p v
+    {
+      const int last = (n_tiles - 1) % ST;
+      hopper::fence_regs(o);
+      hopper::fence_regs(ph);
+      hopper::fence_regs(pl);
+      hopper::wg_fence();
+      grad_tf32<D, BK>(o, ph, pl, operand(last, 1));
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::fence_regs(o);
+      release(last);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+      inv[half] = l[half] == 0.0f ? 1.0f : 1.0f / l[half];  // the l == 0 guard
+    }
+    store_acc16<D, float>(a.o, b, h, qw + wrow, S, o, inv, lane);
+    if (lane % 4 == 0) {
+      const long long bh = static_cast<long long>(b) * a.H + h;
+      const int g = lane / 4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = qw + wrow + g + 8 * half;
+        if (row < S) a.lse[bh * S + row] = m[half] * kLn2 + logf(l[half]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32(const FwdArgs& a, cudaStream_t stream) {
+  using P = FwdPlan32<D>;
+  FwdMaps maps;
+  cudaError_t err = hopper::bhsd_map32(&maps.q, a.q.p, a.q.sb, a.q.sh, a.q.ss, a.B, a.H, a.S, D, P::kRows);
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.k, a.k.p, a.k.sb, a.k.sh, a.k.ss, a.B, a.H, a.S, D, P::kKv);
+  if (err == cudaSuccess) err = hopper::bhsd_map32(&maps.v, a.v.p, a.v.sb, a.v.sh, a.v.ss, a.B, a.H, a.S, D, P::kKv);
+  if (err != cudaSuccess) return err;
+  auto kernel = fwd_tf32_kernel<D>;
+  err = attn::allow_smem(kernel, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + P::kRows - 1) / P::kRows, a.H, a.B);
+  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(a, maps);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- dispatch
 
-// bf16 inputs take the wgmma kernel, fp32 inputs the FMA kernel.
+// bf16 inputs take the bf16 wgmma kernel, fp32 inputs the 3xTF32 one.
 template <typename T, int D>
 cudaError_t launch_typed(const FwdArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return launch_wgmma<D>(a, stream);
   } else {
-    auto kernel = fwd_kernel<T, D>;
-    const size_t smem = sizeof(float) * (2 * D * kLdt + kTile * D + kTile * kLdt);
-    cudaError_t err = attn::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
-    kernel<<<grid, kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
+    return launch_tf32<D>(a, stream);
   }
 }
 
@@ -412,11 +628,15 @@ cudaError_t launch(const FwdArgs& a, int D, cudaStream_t stream) {
   }
 }
 
+// The plan at head_dim D for bf16 or fp32 inputs: {q rows a block, kv rows
+// a stage, stages, threads, dynamic shared memory bytes}.
 template <int D>
-void fwd_plan(long long* out) {
+void fwd_plan(int is_bf16, long long* out) {
   using P = FwdPlan<D>;
-  const long long plan[5] = {kWgRows, P::kKv, kWgStages, kWgThreads, static_cast<long long>(P::kSmem)};
-  for (int i = 0; i < 5; ++i) out[i] = plan[i];
+  using P32 = FwdPlan32<D>;
+  const long long bf16[5] = {kWgRows, P::kKv, kWgStages, kWgThreads, static_cast<long long>(P::kSmem)};
+  const long long fp32[5] = {P32::kRows, P32::kKv, P32::kStages, P32::kThreads, static_cast<long long>(P32::kSmem)};
+  for (int i = 0; i < 5; ++i) out[i] = is_bf16 ? bf16[i] : fp32[i];
 }
 
 }  // namespace flash
@@ -436,13 +656,13 @@ extern "C" int flash_attn_fwd(
   return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(a, D, st) : launch<float>(a, D, st));
 }
 
-// K5's bf16 plan at head_dim D: {q rows a block, kv rows a stage, stages,
-// threads, dynamic shared memory bytes}.
-extern "C" int flash_attn_fwd_plan(int D, long long* out) {
+// K5's plan at head_dim D for bf16 (is_bf16 1) or fp32 inputs: {q rows a
+// block, kv rows a stage, stages, threads, dynamic shared memory bytes}.
+extern "C" int flash_attn_fwd_plan(int D, int is_bf16, long long* out) {
   switch (D) {
-    case 32: flash::fwd_plan<32>(out); return 0;
-    case 64: flash::fwd_plan<64>(out); return 0;
-    case 128: flash::fwd_plan<128>(out); return 0;
+    case 32: flash::fwd_plan<32>(is_bf16, out); return 0;
+    case 64: flash::fwd_plan<64>(is_bf16, out); return 0;
+    case 128: flash::fwd_plan<128>(is_bf16, out); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,7 +33,7 @@
 // accumulator chunks 2kk and 2kk + 1, rounded to bf16 and packed
 // (a_from_acc), are the A operand of depth step kk of the next product.
 //
-// fp32 inputs (K6 and K7 with fp32 q, k, v, do) run each product as 3xTF32:
+// fp32 inputs (K5, K6, K7 with fp32 q, k, v, do) run each product as 3xTF32:
 // x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), and a b = a_hi b_hi +
 // a_hi b_lo + a_lo b_hi, three m64nNk8 tf32 products into one fp32
 // accumulator; what is left out, a_lo b_lo, is below 2^-22 |a b|. TF32 alone

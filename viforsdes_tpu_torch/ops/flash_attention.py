@@ -21,9 +21,9 @@ The wrappers launch the kernels (``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``) for CUDA tensors and take the plain versions only
 for CPU tensors; any other device raises. ``di = rowsum(o * do)`` is a plain
 reduction outside the kernels, as in the JAX package. With bf16 inputs K5, K6
-and K7 read q, k, v and do by TMA and run ``wgmma``; with fp32 inputs K6 and
-K7 do the same in 3xTF32 (each product split into tf32 hi and lo parts, fp32
-accuracy) and K5 runs fp32 FMA. ``flash_plan`` gives the launch plans.
+and K7 read q, k, v and do by TMA and run ``wgmma``; with fp32 inputs they do
+the same in 3xTF32 (each product split into tf32 hi and lo parts, fp32
+accuracy). ``flash_plan`` gives the launch plans.
 """
 
 from __future__ import annotations
@@ -62,9 +62,9 @@ def use_flash_attention(seq_len: int) -> bool:
 
 # ------------------------------------------------------------ launch plan
 
-# The wgmma kernels (``FwdPlan``, ``DkvPlan``, ``DqPlan``, ``DkvPlan32``,
-# ``DqPlan32`` and the block constants of ``csrc/flash_attn.cuh`` and
-# ``csrc/flash_attn_bwd.cu``): a block owns its output rows (consumer
+# The wgmma kernels (``FwdPlan``, ``DkvPlan``, ``DqPlan``, ``FwdPlan32``,
+# ``DkvPlan32``, ``DqPlan32`` and the block constants of
+# ``csrc/flash_attn.cuh``): a block owns its output rows (consumer
 # warpgroups of 64 and one producer warpgroup) and streams the other side's
 # rows through a ring of stages. With bf16 inputs a block owns WGMMA_ROWS rows
 # and the ring has WGMMA_STAGES stages.
@@ -72,11 +72,13 @@ WGMMA_ROWS = 128
 WGMMA_THREADS = 384
 WGMMA_STAGES = 4
 
-# fp32 inputs (K6 and K7 in 3xTF32): every operand tile holds a hi and a lo
-# part, and K6's q and do (K7's k) also arrive transposed, so the tiles are
-# shorter: streamed rows by head_dim, and at head_dim 128 one consumer
-# warpgroup of 64 rows.
-TF32_TILE_ROWS = {32: 32, 64: 16, 128: 8}
+# fp32 inputs (K5-K7 in 3xTF32): every operand tile holds a hi and a lo
+# part, and K5's v (K6's q and do, K7's k) also arrives transposed, so the
+# tiles are shorter: streamed rows by kernel and head_dim, and at head_dim 128
+# one consumer warpgroup of 64 rows. K5 holds only q fixed and affords wider
+# kv tiles than K7.
+TF32_TILE_ROWS = {"fwd": {32: 32, 64: 32, 128: 16}, "dkv": {32: 32, 64: 16, 128: 8},
+                  "dq": {32: 32, 64: 16, 128: 8}}
 
 
 class FlashPlan(NamedTuple):
@@ -88,13 +90,17 @@ class FlashPlan(NamedTuple):
 
 
 def _tf32_plan(kernel: str, d: int) -> FlashPlan:
-    """K6 (``"dkv"``) or K7 (``"dq"``) with fp32 inputs: ``Tile32`` tiles of
-    hi and lo, 4-byte elements."""
+    """K5 (``"fwd"``), K6 (``"dkv"``) or K7 (``"dq"``) with fp32 inputs:
+    ``Tile32`` tiles of hi and lo, 4-byte elements."""
     groups = 1 if d == 128 else 2
-    rows, tile = 64 * groups, TF32_TILE_ROWS[d]
+    rows, tile = 64 * groups, TF32_TILE_ROWS[kernel][d]
     split = 2 * tile * d * 4  # one streamed operand, hi and lo
     fixed = 2 * (2 * rows * d * 4)  # the block's two operands, hi and lo
-    if kernel == "dkv":  # q, do, q^T, do^T (stagers), lse, di
+    if kernel == "fwd":  # q fixed; k, v^T (stagers) and v as TMA lands it
+        fixed //= 2
+        stages = 4
+        stage = 2 * split + tile * d * 4
+    elif kernel == "dkv":  # q, do, q^T, do^T (stagers), lse, di
         stages = 4 if d == 32 else 3
         stage = 4 * split + 2 * 4 * tile
     else:  # k, v, k^T (stagers)
@@ -106,18 +112,16 @@ def _tf32_plan(kernel: str, d: int) -> FlashPlan:
 
 
 def flash_plan(kernel: str, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> FlashPlan:
-    """The launch plan of K5 (``kernel="fwd"``, bf16 only: fp32 runs the FMA
-    kernel), K6 (``"dkv"``) or K7 (``"dq"``) with ``dtype`` inputs at
-    ``head_dim``; ``chip_smoke.py`` holds it equal to the kernels' own
-    (``flash_attn_fwd_plan``, ``flash_attn_bwd_plan``)."""
+    """The launch plan of K5 (``kernel="fwd"``), K6 (``"dkv"``) or K7
+    (``"dq"``) with ``dtype`` inputs at ``head_dim``; ``chip_smoke.py`` holds
+    it equal to the kernels' own (``flash_attn_fwd_plan``,
+    ``flash_attn_bwd_plan``)."""
     d = head_dim
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {d} has no kernel")
     if kernel not in ("fwd", "dkv", "dq"):
         raise ValueError(f"flash_plan: unknown kernel {kernel!r}")
     if dtype == torch.float32:
-        if kernel == "fwd":
-            raise ValueError("flash_plan: K5 has no wgmma plan for fp32 inputs (it runs the FMA kernel)")
         return _tf32_plan(kernel, d)
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_plan: no kernel for {dtype}")
@@ -146,9 +150,9 @@ def tma_readable(t: Tensor) -> bool:
 
 
 def _tma_operand(t: Tensor) -> Tensor:
-    """``t`` where the kernels can read it through its strides (TMA for the
-    wgmma kernels, vector loads for the fp32 forward), else a contiguous copy;
-    refused before any launch if even the copy is not readable."""
+    """``t`` where the kernels can read it through its strides (TMA), else a
+    contiguous copy; refused before any launch if even the copy is not
+    readable."""
     t = kernel_operand(t)
     if not tma_readable(t):
         t = t.clone(memory_format=torch.contiguous_format)

@@ -160,7 +160,7 @@ ATTENTION = Library(
         "qk_prep_bwd": _view * 2 + [_p, _p] + _view + [_i] * 5 + [_f, _p],
         "flash_attn_fwd": _view * 4 + [_p] + [_i] * 6 + [_f, _p],
         "flash_attn_bwd": _view * 4 + [_p, _p] + _view * 3 + [_i] * 6 + [_f, _i, _p],
-        "flash_attn_fwd_plan": [_i, _p],
+        "flash_attn_fwd_plan": [_i, _i, _p],
         "flash_attn_bwd_plan": [_i, _i, _i, _p],
     },
 )
