@@ -108,7 +108,21 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    num_heads=4)``; then ``[head320]``: ``HeadConfig(hidden_dim=320)`` under
    ``sampler="auto"`` trains 2 OU steps on the card through the plain loop,
    and ``sampler="pallas"`` at that width is refused;
-15. ``[dp]``: data-parallel training (``parallel/``) at
+15. ``[ladder]``: the quality ladder's sampler shapes (Lorenz-63 round 3:
+   B=32, T=2000, D=3, head 128 x 3; highdim round 5: B=512, T=100, D=32,
+   head 128 x 2; SIR: B=64, T=400, D=2; LV: B=24, T=400, D=2), K1 and K2
+   against the plain version on the plan the card picks (equal to its
+   mirror); then every rung of ``examples_torch/quality_eval.py`` (OU
+   synthetic, SIR, LV, highdim round 5, Lorenz-63 round 3) at its committed
+   recipe and full width through the harness's own function: its real
+   pretraining, then 20 steps in CUDA graphs of 10, finite ELBOs, K1/K2
+   launched on every rung and K3-K7 on Lorenz-63 only, the result's keys
+   those of the JAX package's committed result, its ms/step over replays of
+   the graph, pretraining seconds and peak memory; then the ``main()`` of
+   the OU, LV, SIR and Lorenz-63 examples (``examples_torch/``) at their own
+   configuration, cut to 3 steps (``highdim_ou_dp``'s batch of 4096 in one
+   pass does not fit one card: ``[dp]`` trains it in microbatches);
+16. ``[dp]``: data-parallel training (``parallel/``) at
    ``examples/highdim_ou_dp.py``'s configuration (d=32, batch 4096, SiT
    256 x 4 x 8, GRU 64 x 2), cut to 10 steps in graphs of 5 and to 4
    microbatches a step: ``infer(mesh=make_data_mesh())`` on a world of one
@@ -138,6 +152,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -159,7 +174,6 @@ OU_TIMED = 10   # steps per arm of the timing phase, in two turns
 # examples/lorenz63.py's configuration (the long-grid path)
 LZ_BATCH, LZ_DT, LZ_HORIZON, LZ_OBS_EVERY = 32, 0.01, 20.0, 0.5
 LZ_TRUE = (10.0, 28.0, 8.0 / 3.0)
-LZ_NOISE = 2.0
 LZ_STEPS = 3          # infer() training steps
 LZ_SAMPLES = 64       # posterior.summary draws (one chunk)
 LZ_TIMED = 2          # steps per turn of the timing phase
@@ -535,6 +549,18 @@ def check_gates_match(torch, spec, h_all, acts, what: str) -> None:
             raise AssertionError(f"{what}: K2's gates differ from K1's at layer {l} ({bad} values of h)")
 
 
+def sampler_grads(torch, sample_fn, spec, w, x0, gc, eps, cot) -> list:
+    """Gradients of x0, the gate constants, the noise and every weight
+    through ``sample_fn`` (the kernels or the plain loop) for the cotangents
+    ``cot``; zeros where an input is unused."""
+    from viforsdes_tpu_torch.ops.sde_sampler import SamplerWeights
+
+    ins = [t.clone().requires_grad_() for t in (x0, gc, eps, *w)]
+    outs = sample_fn(spec, SamplerWeights(*ins[3:]), *ins[:3])
+    got = torch.autograd.grad(outs, ins, grad_outputs=cot, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(ins, got)]
+
+
 def phase_backward(torch) -> float:
     """K2 against autograd through the plain loop at every ``SHAPES`` row,
     on the plan by shape (the card's plan equal to ``plan_backward``'s);
@@ -559,10 +585,7 @@ def phase_backward(torch) -> float:
         paths_seen.add(plan.path)
 
         def grads(sample_fn):
-            ins = [t.clone().requires_grad_() for t in (x0, gc, eps, *w)]
-            outs = sample_fn(spec, ss.SamplerWeights(*ins[3:]), *ins[:3])
-            got = torch.autograd.grad(outs, ins, grad_outputs=cot, allow_unused=True)
-            return [torch.zeros_like(t) if g is None else g for t, g in zip(ins, got)]
+            return sampler_grads(torch, sample_fn, spec, w, x0, gc, eps, cot)
 
         got = grads(ss.sample_paths)
         ref = grads(ss.sample_paths_scan)
@@ -1143,22 +1166,14 @@ def read_counts() -> dict:
 
 
 def ou_problem(vt):
-    class OU:
-        state_dim = 1
-        sde_param_dim = 3
-
-        def drift(self, x, p):
-            return p[..., 0:1] * (p[..., 1:2] - x)
-
-        def diffusion(self, x, p):
-            return p[..., 2:3][..., None]
+    from examples_torch.ornstein_uhlenbeck import OrnsteinUhlenbeck
 
     observations = vt.Observations(
         times=[0.0, 1.0, 2.0, 3.0, 4.0, 5.0],
         values=[[2.0], [1.5], [0.8], [1.2], [0.9], [1.1]],
     )
     return (
-        OU(),
+        OrnsteinUhlenbeck(),
         observations,
         vt.GaussianObservationLikelihood(variance=0.1),
         vt.Prior(type=vt.PriorType.NORMAL, mean=0.0, std=1.0, dim=3),
@@ -1322,19 +1337,7 @@ def phase_profile(torch, trainer, step: int, wall_ms: float, label: str, n: int 
 def lorenz_problem(torch, vt):
     """Stochastic Lorenz-63 (examples/lorenz63.py) with observations of all
     three coordinates every 0.5 time units, simulated from a seeded generator."""
-
-    class StochasticLorenz63:
-        state_dim = 3
-        sde_param_dim = 3
-
-        def drift(self, x, p):
-            sigma_l, rho, beta = p[..., 0], p[..., 1], p[..., 2]
-            x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
-            return torch.stack([sigma_l * (x2 - x1), x1 * (rho - x3) - x2, x1 * x2 - beta * x3], dim=-1)
-
-        def diffusion(self, x, p):
-            eye = torch.eye(3, dtype=x.dtype, device=x.device)
-            return (LZ_NOISE * eye).expand(*x.shape, 3)
+    from examples_torch.lorenz63 import StochasticLorenz63
 
     sde = StochasticLorenz63()
     gen = torch.Generator().manual_seed(17)
@@ -1999,6 +2002,235 @@ def phase_matched(torch, vt) -> dict:
     return {"wall_s": wall, "history": history}
 
 
+# ------------------------------------------------------- the quality ladder
+
+# the sampler shapes the ladder's recipes add (examples_torch/quality_eval.py
+# RUNGS), held against the plain version: label -> (B, T, D, H, L, dt)
+LADDER_SHAPES = {
+    "lorenz r3": (32, 2000, 3, 128, 3, LZ_DT),   # head 128 x 3, 4 theta draws x IW-8, full Cholesky
+    "highdim r5": (512, 100, 32, 128, 2, DT),    # d=32, head 128 x 2, batch 512 (64 draws x IW-8)
+    "sir": (64, 400, 2, 64, 2, 0.02),
+    "lv": (24, 400, 2, 64, 2, 0.1),
+}
+LADDER_STEPS, LADDER_K = 20, 10  # training steps a rung, LADDER_K steps a graph
+LADDER_WINDOWS = 2               # timed replays of LADDER_K steps after a rung's run
+LADDER_EXAMPLE_STEPS = 3         # training steps of each example's main()
+# every example but highdim_ou_dp: its batch of 4096 in one pass does not fit
+# one card; [dp] trains its configuration in 4 microbatches
+LADDER_EXAMPLES = ("ornstein_uhlenbeck", "lotka_volterra", "sir_epidemic", "lorenz63")
+# the rungs on the flash path (K3-K7): more than 512 grid tokens
+LADDER_FLASH_RUNGS = ("lorenz",)
+
+
+def phase_ladder_sampler(torch) -> tuple[float, float]:
+    """K1 and K2 against the plain loop at the ladder's sampler shapes, on
+    the plan the card picks (equal to its mirror)."""
+    from viforsdes_tpu_torch.ops import sde_sampler as ss
+
+    n_sms, optin = device_limits(torch)
+    dev = torch.cuda.current_device()
+    worst_f = worst_b = 0.0
+    for i, (label, (B, T, D, H, L, dt)) in enumerate(LADDER_SHAPES.items()):
+        spec, w, x0, gc, eps, cot = sampler_case(torch, B, T, D, H, L, "full", 40 + i, dt=dt, on_card=True)
+        slots = ss.cluster_slots(spec, dev)
+        fplan, bplan = ss.forward_plan(spec, B, dev), ss.backward_plan(spec, B, dev)
+        check_plan(fplan, ss.plan_forward(spec, B, n_sms, optin, slots["fwd"]), f"K1 {label}")
+        check_plan(bplan, ss.plan_backward(spec, B, n_sms, optin, slots["bwd"]), f"K2 {label}")
+        out = ss.sampler_forward(spec, w, x0, gc, eps, save_h=True)
+        ref = ss._forward_plain(spec, w, x0, gc, eps, save_h=True)
+        torch.cuda.synchronize()
+        for name in ("paths", "raw", "chol_vals", "h_all"):
+            worst_f = max(worst_f, max_err(getattr(out, name), getattr(ref, name), FWD_RTOL, FWD_ATOL,
+                                           f"K1 {name} {label}"))
+        got, want = (sampler_grads(torch, fn, spec, w, x0, gc, eps, cot)
+                     for fn in (ss.sample_paths, ss.sample_paths_scan))
+        torch.cuda.synchronize()
+        for name, a, r in zip(["x0", "gates_const", "eps", *ss.SamplerWeights._fields], got, want):
+            if a.numel():
+                worst_b = max(worst_b, max_err(a, r, BWD_RTOL, BWD_ATOL, f"K2 d_{name} {label}"))
+        log(f"[ladder] K1/K2 {label} B={B} T={T} D={D} H={H} L={L}: within the bars (max |err| so far "
+            f"{worst_f:.3e} / {worst_b:.3e}); K1 plan {plan_text(fplan)}, K2 plan {plan_text(bplan)} "
+            f"(the mirrors')")
+    return worst_f, worst_b
+
+
+@contextlib.contextmanager
+def trainers_seen():
+    """Every trainer that ``train()`` runs inside the block, in order."""
+    from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer
+
+    seen: list = []
+    saved = VariationalInferenceTrainer.train
+
+    def train(self, *args, **kwargs):
+        seen.append(self)
+        return saved(self, *args, **kwargs)
+
+    VariationalInferenceTrainer.train = train
+    try:
+        yield seen
+    finally:
+        VariationalInferenceTrainer.train = saved
+
+
+def replay_ms(torch, trainer, first_step: int) -> list[float]:
+    """ms/step of ``LADDER_WINDOWS`` replays of the trainer's captured
+    chunk of ``LADDER_K`` steps, each ended by a synchronize."""
+    chunk = trainer._get_train_chunk(LADDER_K)
+    out = []
+    for w in range(LADDER_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(first_step + w * LADDER_K)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / LADDER_K)
+    return out
+
+
+def release(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_ladder_rungs(torch, smi: str, out_dir: str) -> dict:
+    """Every rung of the ladder at its committed recipe and full width,
+    through the harness's own functions, cut to ``LADDER_STEPS`` steps in
+    graphs of ``LADDER_K``: its real pretraining, finite ELBOs, K1/K2 (and
+    on the long grid K3-K7) launched, the result's keys those of the JAX
+    package's committed result; then its ms/step over replays of the graph,
+    its pretraining seconds and peak memory."""
+    from examples_torch import quality_eval as qe
+
+    rows = {}
+    for name, (fn, kw, n_committed, ref) in qe.RUNGS.items():
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        opts = qe.RunOptions(steps_per_call=LADDER_K, out_dir=out_dir)
+        t0 = time.perf_counter()
+        with timed_pretrain(torch) as pre, trainers_seen() as seen:
+            result = fn(LADDER_STEPS, **kw, opts=opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (trainer,) = seen
+        history = trainer.evidence_lower_bound_history
+        if len(history) != LADDER_STEPS or not all(math.isfinite(v) for v in history):
+            raise AssertionError(f"[ladder] {name}: missing or non-finite ELBO: {history}")
+        flash = name in LADDER_FLASH_RUNGS
+        if not (launches["K1"] and launches["K2"]):
+            raise AssertionError(f"[ladder] {name}: K1 or K2 launched no time: {launches}")
+        if any(bool(launches[k]) != flash for k in ("K3", "K4", "K5", "K6", "K7")):
+            raise AssertionError(f"[ladder] {name}: K3-K7 {'not all' if flash else 'some'} launched: {launches}")
+        with open(os.path.join(REPO, ref)) as f:
+            committed = json.load(f)
+        missing = sorted(set(committed) - set(result))
+        if missing or set(result["posterior_mean"]) != set(committed["posterior_mean"]):
+            raise AssertionError(f"[ladder] {name}: the result lacks the JAX schema's keys {missing}")
+        ms = replay_ms(torch, trainer, LADDER_STEPS)
+        grid = trainer.model.encoder.n_grid
+        del trainer, seen
+        rows[name] = {"ms_per_step": statistics.median(ms), "windows_ms": ms, "pretrain_s": pre.get("seconds"),
+                      "peak_gib": peak, "wall_s": wall, "grid": grid, "launches": launches,
+                      "elbo_last": history[-1], "committed_steps": n_committed}
+        log(f"[ladder] {name} ({grid} tokens; {n_committed} steps committed, {LADDER_STEPS} run, "
+            f"{LADDER_K} a graph): pretrain {'none' if 'seconds' not in pre else f'{pre['seconds']:.2f} s'}, "
+            f"infer + summary {wall:.2f} s; "
+            f"replays {[round(v, 3) for v in ms]} ms/step; peak {peak:.3f} GiB; launches {launches}; "
+            f"ELBO {history[0]:.3f} -> {history[-1]:.3f}; theta mean {result['posterior_mean']}; "
+            f"JAX schema keys present; {smi}")
+    release(torch)
+    return rows
+
+
+def phase_ladder_examples(torch, vt) -> dict:
+    """Each example's ``main()`` (``examples_torch/``) on the card at its own
+    configuration, with ``infer`` cut to ``LADDER_EXAMPLE_STEPS`` steps: the
+    console, ``summary(500)``, the summary table, ``plot(30)`` (where
+    matplotlib is present) and ``save``."""
+    import importlib
+    import importlib.util
+    import tempfile
+
+    from viforsdes_tpu_torch.posterior.posterior import VariationalPosterior
+
+    has_plot = importlib.util.find_spec("matplotlib") is not None
+    has_rich = importlib.util.find_spec("rich") is not None
+    real_infer, real_plot, real_console = vt.infer, VariationalPosterior.plot, vt.Console
+    seen: list = []
+
+    def infer(**kw):
+        c = kw["config"]
+        kw["config"] = dataclasses.replace(
+            c, training=c.training.model_copy(update={"n_iterations": LADDER_EXAMPLE_STEPS}))
+        seen.append(real_infer(**kw))
+        return seen[-1]
+
+    class NoFigure:
+        def savefig(self, *args, **kwargs) -> None:
+            pass
+
+    vt.infer = infer
+    if not has_rich:
+        vt.Console = lambda enabled=True: real_console(enabled=False)
+    if not has_plot:
+        VariationalPosterior.plot = lambda self, n_trajectories=50, show=True: NoFigure()
+    cwd = os.getcwd()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            for module in LADDER_EXAMPLES:
+                release(torch)
+                reset_counts()
+                t0 = time.perf_counter()
+                importlib.import_module(f"examples_torch.{module}").main()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                history = seen[-1].evidence_lower_bound_history
+                if len(history) != LADDER_EXAMPLE_STEPS or not all(math.isfinite(v) for v in history):
+                    raise AssertionError(f"[ladder] example {module}: missing or non-finite ELBO {history}")
+                if not (launches["K1"] and launches["K2"]):
+                    raise AssertionError(f"[ladder] example {module}: K1 or K2 launched no time: {launches}")
+                files = sorted(os.listdir(tmp))
+                log(f"[ladder] example {module}: main() with {LADDER_EXAMPLE_STEPS} steps in {wall:.2f} s; "
+                    f"ELBO {[round(v, 3) for v in history]}; launches {launches}; wrote {files}")
+                out[module] = {"wall_s": wall, "launches": launches}
+                for f in files:
+                    os.remove(os.path.join(tmp, f))
+            seen.clear()
+    finally:
+        os.chdir(cwd)
+        vt.infer, vt.Console = real_infer, real_console
+        VariationalPosterior.plot = real_plot
+    log(f"[ladder] examples: rich {'present' if has_rich else 'absent: the console runs disabled'}; "
+        f"matplotlib {'present' if has_plot else 'absent: plot() returns no figure'}; "
+        f"highdim_ou_dp's main() not run (batch 4096 in one pass; [dp] trains its configuration)")
+    release(torch)
+    return out
+
+
+def phase_ladder(torch, vt, smi: str) -> dict:
+    import tempfile
+
+    t0 = time.perf_counter()
+    errs = phase_ladder_sampler(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        rungs = phase_ladder_rungs(torch, smi, tmp)
+    examples = phase_ladder_examples(torch, vt)
+    log(f"[ladder] {smi}: rungs ms/step (replayed graphs of {LADDER_K}) "
+        f"{ {k: round(v['ms_per_step'], 3) for k, v in rungs.items()} }; pretrain s "
+        f"{ {k: None if v['pretrain_s'] is None else round(v['pretrain_s'], 2) for k, v in rungs.items()} }; "
+        f"peak GiB { {k: round(v['peak_gib'], 3) for k, v in rungs.items()} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "rungs": rungs, "examples": examples}
+
+
 # ------------------------------------------------- data parallel (parallel/)
 
 # examples/highdim_ou_dp.py's configuration: d=32, batch 4096 (global), the
@@ -2407,6 +2639,10 @@ def main() -> int:
     phase_repairs(torch, vt)
     phase_wide_head(torch, vt)
     mark("repairs")
+    ladder = phase_ladder(torch, vt, smi)
+    errs["K1"] = max(errs["K1"], ladder["errs"][0])
+    errs["K2"] = max(errs["K2"], ladder["errs"][1])
+    mark("ladder")
     phase_dp(torch, vt, smi)
     torch.cuda.synchronize()
     mark("data parallel")

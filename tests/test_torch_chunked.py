@@ -12,6 +12,8 @@ state. The trainer updates its state buffers in place (a captured graph holds
 their addresses), which the ``data_ptr`` tests pin.
 """
 
+import contextlib
+import gc
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -195,3 +197,90 @@ def test_set_theta_mean_keeps_the_state_buffers():
     s = trainer.opt_state
     assert all(not bool(s[k][g].any()) for k in ("mu", "nu") for g in GROUPS)
     assert int(s["count"]) == int(s["notfinite_count"]) == int(s["total_notfinite"]) == 0
+
+
+class _Cycle:
+    """A dead reference cycle whose finalizer records whether the collector
+    was on, as a dead trainer <-> chunk cycle holding a CUDA graph is."""
+
+    finalized: list = []
+
+    def __init__(self):
+        self.me = self
+
+    def __del__(self):
+        _Cycle.finalized.append(gc.isenabled())
+
+
+def _fake_capture(monkeypatch, fail: bool = False) -> dict:
+    """``torch.cuda``'s streams and graph capture faked in ``chunk``, so that
+    ``TrainChunk._warm_and_capture`` runs on the CPU; returns what the
+    capture saw."""
+    from viforsdes_tpu_torch.inference import chunk as chunk_mod
+
+    seen: dict = {}
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Capture:
+        def __init__(self, graph, stream=None, capture_error_mode=None):
+            seen["mode"] = capture_error_mode
+
+        def __enter__(self):
+            seen["collector_on"] = gc.isenabled()
+            seen["finalized_before"] = len(_Cycle.finalized)
+
+        def __exit__(self, *exc):
+            if fail:
+                raise RuntimeError("CUDA error: operation failed due to a previous error during capture")
+
+    cuda = chunk_mod.torch.cuda
+    monkeypatch.setattr(cuda, "current_stream", lambda dev=None: Stream())
+    monkeypatch.setattr(cuda, "Stream", lambda dev=None: Stream())
+    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(cuda, "CUDAGraph", object)
+    monkeypatch.setattr(cuda, "graph", Capture)
+    return seen
+
+
+@pytest.mark.parametrize("collector_on", [False, True])
+def test_capture_collects_the_dead_first_and_nothing_during(monkeypatch, collector_on):
+    """On the card, a collection inside the capture that finalizes an earlier
+    trainer's dead graph invalidates the capture. The chunk collects the dead
+    before it captures, keeps the collector off during the capture, and
+    leaves it as it found it."""
+    from viforsdes_tpu_torch.inference.chunk import TrainChunk
+
+    trainer = _trainer(n_iterations=4)
+    chunk = TrainChunk(trainer, 2)
+    chunk(0)  # the CPU path: fills the input buffers
+    seen = _fake_capture(monkeypatch)
+    _Cycle.finalized.clear()
+    gc.disable()
+    try:
+        _Cycle()
+        if collector_on:
+            gc.enable()
+        chunk._warm_and_capture(2)
+        assert gc.isenabled() == collector_on
+    finally:
+        gc.enable()
+    assert seen == {"mode": "global", "collector_on": False, "finalized_before": 1}
+    assert _Cycle.finalized in ([False], [True]) and chunk.graph is not None
+    if not collector_on:  # only the chunk's own collection could have run it
+        assert _Cycle.finalized == [False]
+
+
+def test_failed_capture_raises_and_turns_the_collector_back_on(monkeypatch):
+    from viforsdes_tpu_torch.inference.chunk import TrainChunk
+
+    trainer = _trainer(n_iterations=4)
+    chunk = TrainChunk(trainer, 2)
+    chunk(0)
+    _fake_capture(monkeypatch, fail=True)
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError, match="capturing the 2-step training chunk that starts at step 2"):
+        chunk._warm_and_capture(2)
+    assert gc.isenabled() and chunk.graph is None

@@ -25,24 +25,15 @@ from viforsdes_tpu_torch.inference.optimizer import GROUPS
 from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer as TTrainer
 from viforsdes_tpu_torch.utils.tree import tree_items
 
+# dx = kappa (mu - x) dt + sigma dW: the example's class, whose code runs on
+# jnp arrays and torch tensors alike
+from examples_torch.ornstein_uhlenbeck import OrnsteinUhlenbeck as OU
+
 OBS_TIMES = [0.0, 0.5, 1.0, 1.5, 2.0]
 OBS_VALUES = [[2.0], [1.5], [0.8], [1.2], [0.9]]
 HORIZON, DT, BATCH = 2.0, 0.1, 8
 ENC = dict(hidden_dim=32, cond_dim=16, num_heads=2, depth=2)
 HEAD = dict(hidden_dim=16, num_layers=2)
-
-
-class OU:
-    """dx = kappa (mu - x) dt + sigma dW; the same code runs on jnp and torch."""
-
-    state_dim = 1
-    sde_param_dim = 3
-
-    def drift(self, x, p):
-        return p[..., 0:1] * (p[..., 1:2] - x)
-
-    def diffusion(self, x, p):
-        return p[..., 2:3][..., None]
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -18,30 +18,8 @@ from rich.console import Console as RichConsole
 import viforsdes_tpu_torch as tvt
 from viforsdes_tpu_torch.utils.tree import tree_items
 
+from examples_torch.sir_epidemic import POPULATION, SIR
 from test_torch_elbo import OU
-
-POPULATION = 1000.0
-
-
-class SIR:
-    """examples/sir_epidemic.py's chemical-Langevin SIR, on torch."""
-
-    state_dim = 2
-    sde_param_dim = 2
-
-    def drift(self, x, p):
-        s, i = x[..., 0], x[..., 1]
-        infection = p[..., 0] * s * i / POPULATION
-        return torch.stack([-infection, infection - p[..., 1] * i], dim=-1)
-
-    def diffusion(self, x, p):
-        s, i = x[..., 0], x[..., 1]
-        a = torch.clamp(p[..., 0] * s * i / POPULATION, min=1e-6)
-        b = torch.clamp(p[..., 1] * i, min=1e-6)
-        zeros = torch.zeros_like(a)
-        row0 = torch.stack([torch.sqrt(a), zeros], dim=-1)
-        row1 = torch.stack([-torch.sqrt(a), torch.sqrt(b)], dim=-1)
-        return torch.stack([row0, row1], dim=-2)
 
 
 @pytest.fixture(autouse=True, scope="module")

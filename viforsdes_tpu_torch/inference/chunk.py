@@ -14,7 +14,8 @@ params, AdamW state and EMA, updated in place:
   They are real training steps, and they do what capture cannot: load the
   kernel libraries, fill the cached plans and index tables, create the
   cuBLAS handles and set the kernels' shared-memory attributes. Then the K
-  steps are captured as one CUDA graph on that stream, and every later call
+  steps are captured as one CUDA graph on that stream, with Python's garbage
+  collector run just before and off during the capture, and every later call
   replays it. A failed capture or replay raises; nothing retries eagerly;
 - on the CPU every call runs its K steps eagerly from the same buffers;
 - under a data mesh (``parallel/mesh.py``) each step's all-reduces are part
@@ -33,6 +34,7 @@ a replay after the buffers were replaced raises.
 
 from __future__ import annotations
 
+import gc
 from typing import TYPE_CHECKING
 
 import torch
@@ -108,6 +110,14 @@ class TrainChunk:
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mode = "global" if self.trainer.mesh is None else "thread_local"
+        # Python's collector must not run inside the capture: collecting an
+        # earlier trainer's dead cycle (trainer <-> chunk) there destroys its
+        # CUDA graph, which invalidates the capture. torch.cuda.graph does not
+        # collect first by default, so the dead are collected here and the
+        # collector is off until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
                 self._run()
@@ -116,6 +126,9 @@ class TrainChunk:
                 f"capturing the {self.length}-step training chunk that starts at step "
                 f"{first_step} as a CUDA graph failed: {err}"
             ) from err
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
         self._captured_on = self._state_pointers()
 
