@@ -122,7 +122,16 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    the OU, LV, SIR and Lorenz-63 examples (``examples_torch/``) at their own
    configuration, cut to 3 steps (``highdim_ou_dp``'s batch of 4096 in one
    pass does not fit one card: ``[dp]`` trains it in microbatches);
-16. ``[dp]``: data-parallel training (``parallel/``) at
+16. ``[lv bf16]``: one step of the LV rung's problem at its full width
+   (SiT 256 x 4 x 8, GRU 64 x 2, 401 tokens, batch 24; ``tools/lv_step.py``)
+   on one set of weights and draws, in bf16 and fp32 on the card (K1/K2
+   launched, no attention kernel) and on the CPU (the plain path): each
+   side's bf16 ELBO and gradient against its own fp32 step, in total and per
+   leaf, and ``allow_bf16_reduced_precision_reduction``; it fails if the
+   card's error exceeds the CPU's by more than ``LV_BF16_BAR`` times in
+   total, over the encoder or on any leaf above its floor
+   (``lv_bf16_failures``), or if the card's fp32 step leaves the CPU's;
+17. ``[dp]``: data-parallel training (``parallel/``) at
    ``examples/highdim_ou_dp.py``'s configuration (d=32, batch 4096, SiT
    256 x 4 x 8, GRU 64 x 2), cut to 10 steps in graphs of 5 and to 4
    microbatches a step: ``infer(mesh=make_data_mesh())`` on a world of one
@@ -2231,6 +2240,81 @@ def phase_ladder(torch, vt, smi: str) -> dict:
     return {"errs": errs, "rungs": rungs, "examples": examples}
 
 
+# ------------------------------------------- the LV rung's bf16 step (card vs CPU)
+
+# The card's bf16 gradient error against its own fp32 gradient, over the CPU's
+# against the CPU's fp32 gradient (both in total over every leaf and over the
+# encoder's leaves), at most this: the card's bf16 step may round no more than
+# the CPU's plain path does on the same weights and draws. Both ratios were
+# 0.999 on an NVIDIA H100 80GB HBM3 at 700 W; the bar leaves room for another
+# choice of cuBLAS algorithms. The same bar holds each leaf's error over the
+# CPU's (at most 1.061 there, on 128 leaves), above a floor: a sum of one
+# bias's gradient in bf16 moves that leaf alone, by far more than the floor,
+# and the total hardly at all.
+LV_BF16_BAR = 1.5
+# a leaf's card error under this passes whatever the CPU's: a quarter of one
+# bf16 rounding (2**-8); the head's and theta's leaves, which the bf16 step
+# reaches only through the context, read 4e-5 to 1.1e-3 on both sides
+LV_LEAF_FLOOR = 1e-3
+# ``v_residual_lambda``'s floor: each is one scalar whose gradient subtracts
+# two sums over the batch and grid, 7.7e-3 to 2.8e-2 on both sides; a bf16
+# sum of it misses by 1.05 (the JAX package's CPU step, ROADMAP)
+LV_VRES_FLOOR = 0.1
+# the card's fp32 step against the CPU's: the ELBO to ELBO_RTOL, the total
+# gradient error at most this (5.2e-7 on that card)
+LV_FP32_GRAD = 1e-5
+
+
+def lv_bf16_failures(out: dict) -> list[str]:
+    """What fails ``[lv bf16]``'s bars in ``tools/lv_step.py``'s ``run``
+    output: non-finite errors; the card's bf16 error over the CPU's, in
+    total, over the encoder or on any leaf above its floor, past
+    ``LV_BF16_BAR``; the card's fp32 step away from the CPU's."""
+    bad = []
+    for side in ("cuda", "cpu"):
+        if not all(math.isfinite(v) for v in (out[side]["elbo_rel"], out[side]["all"], out[side]["encoder"],
+                                              *out[side]["leaf"].values())):
+            bad.append(f"{side}: non-finite errors")
+    card, cpu = out["cuda"], out["cpu"]
+    for w in ("all", "encoder"):
+        if card[w] > LV_BF16_BAR * cpu[w]:
+            bad.append(f"{w}: card {card[w]:.4e} over {LV_BF16_BAR} x CPU {cpu[w]:.4e}")
+    for p, e in card["leaf"].items():
+        floor = LV_VRES_FLOOR if p.endswith("v_residual_lambda") else LV_LEAF_FLOOR
+        if e > max(LV_BF16_BAR * cpu["leaf"][p], floor):
+            bad.append(f"leaf {p}: card {e:.4e} over max({LV_BF16_BAR} x CPU {cpu['leaf'][p]:.4e}, {floor})")
+    cross = out["fp32_card_vs_cpu"]
+    if cross["elbo_rel"] > ELBO_RTOL or cross["all"] > LV_FP32_GRAD:
+        bad.append(f"the card's fp32 step differs from the CPU's: ELBO {cross['elbo_rel']:.3e}, "
+                   f"gradient {cross['all']:.3e}")
+    return bad
+
+
+def phase_lv_bf16(torch) -> None:
+    """``[lv bf16]``: one step of the LV rung's problem at its full width
+    (SiT 256 x 4 x 8, GRU 64 x 2, 401 tokens, batch 24) on one set of weights
+    and draws, in bf16 and fp32 on the card (the kernel path: K1/K2, the
+    dense SDPA, cuBLAS) and on this machine's CPU (the plain path), each
+    side's bf16 gradient against its own fp32 gradient (``tools/lv_step.py``),
+    held to ``lv_bf16_failures``'s bars."""
+    from tools import lv_step
+
+    reset_counts()
+    out = lv_step.run(log=log, after_card=read_counts)
+    launches = out["launches"]
+    if not (launches["K1"] and launches["K2"]) or any(launches[k] for k in ("K3", "K4", "K5", "K6", "K7")):
+        raise AssertionError(f"[lv bf16] the card's steps should run K1/K2 and no attention kernel: {launches}")
+    card, cpu = out["cuda"], out["cpu"]
+    leaf = max(card["leaf"], key=lambda p: card["leaf"][p] / max(cpu["leaf"][p], 1e-30))
+    log(f"[lv bf16] card over CPU: total {card['all'] / cpu['all']:.3f}, encoder "
+        f"{card['encoder'] / cpu['encoder']:.3f}, largest leaf {card['leaf'][leaf] / cpu['leaf'][leaf]:.3f} "
+        f"({leaf}) (bar {LV_BF16_BAR}; leaf floors {LV_LEAF_FLOOR}, v_residual_lambda {LV_VRES_FLOOR}); "
+        f"launches {launches}")
+    bad = lv_bf16_failures(out)
+    if bad:
+        raise AssertionError("[lv bf16] " + "; ".join(bad))
+
+
 # ------------------------------------------------- data parallel (parallel/)
 
 # examples/highdim_ou_dp.py's configuration: d=32, batch 4096 (global), the
@@ -2643,6 +2727,8 @@ def main() -> int:
     errs["K1"] = max(errs["K1"], ladder["errs"][0])
     errs["K2"] = max(errs["K2"], ladder["errs"][1])
     mark("ladder")
+    phase_lv_bf16(torch)
+    mark("LV bf16 step")
     phase_dp(torch, vt, smi)
     torch.cuda.synchronize()
     mark("data parallel")

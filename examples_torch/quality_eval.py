@@ -201,24 +201,27 @@ def run_ou(n_iterations: int, opts: RunOptions | None = None) -> dict:
     return _finish(result, port, opts)
 
 
+# the LV rung's observations (the JAX harness's, ``benchmarks/quality_eval.py``)
+LV_OBSERVATIONS = dict(
+    times=[0.0, 10.0, 20.0, 30.0, 40.0],
+    values=[
+        [71.0, 79.0],
+        [47.61225908, 447.20971405],
+        [80.53119269, 50.26254069],
+        [23.10087379, 339.40432691],
+        [158.05238324, 66.79611979],
+    ],
+)
+
+
 def run_lv(n_iterations: int, opts: RunOptions | None = None) -> dict:
     from examples_torch.lotka_volterra import LotkaVolterra
 
     opts = opts or RunOptions()
-    observations = vtt.Observations(
-        times=[0.0, 10.0, 20.0, 30.0, 40.0],
-        values=[
-            [71.0, 79.0],
-            [47.61225908, 447.20971405],
-            [80.53119269, 50.26254069],
-            [23.10087379, 339.40432691],
-            [158.05238324, 66.79611979],
-        ],
-    )
     posterior, clock, port = _infer(
         "lv", opts,
         sde=LotkaVolterra(),
-        observations=observations,
+        observations=vtt.Observations(**LV_OBSERVATIONS),
         observation_likelihood=vtt.GaussianObservationLikelihood(variance=1.0),
         prior=vtt.Prior(type=vtt.PriorType.LOG_NORMAL, mean=0.0, std=1.5, dim=3),
         time_horizon=40.0,

@@ -224,13 +224,13 @@ def test_resumed_rung_sums_its_segments(tmp_path, monkeypatch):
     assert json.loads((tmp_path / "ck2" / "ckpt_ou_synthetic.time.json").read_text())["20"]["segments"] == 2
 
 
-def test_lv_fp32_diagnostic_is_the_lv_rung_in_fp32():
-    """``tools/lv_fp32.py`` runs the LV rung's recipe with the training
-    step's dtype the one change."""
-    lv_fp32 = load_file("lv_fp32", REPO / "tools" / "lv_fp32.py")
+def test_lv_fp32_diagnostic_is_the_lv_rung_in_fp32(tmp_path):
+    """``tools/lv_seeds.py``'s ``fp32`` arm at seed 0 runs the LV rung's
+    recipe with the training step's dtype the one change."""
+    lv_seeds = load_file("lv_seeds", REPO / "tools" / "lv_seeds.py")
     real = vtt.infer
     rung = ladder_data.capture_infer(vtt, port_harness.run_lv, 3, port_harness.RunOptions())
-    diag = ladder_data.capture_infer(vtt, lv_fp32.run_lv_fp32, 3, port_harness.RunOptions())
+    diag = ladder_data.capture_infer(vtt, lv_seeds.run, "fp32", 0, 3, tmp_path)
     assert vtt.infer is real
     cfg, cfg32 = rung["config"], diag["config"]
     assert cfg.training.compute_dtype != vtt.ComputeDtype.FLOAT32
