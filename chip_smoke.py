@@ -11,22 +11,24 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    print the compiler's register and spill report;
 3. K1, the path-sampler forward kernel, against its plain PyTorch version,
    at the OU and Lorenz-63 shapes, three ragged ones, the widest head it
-   takes (H=256) and the 32-dimensional state of ``examples/highdim_ou_dp.py``
-   (one row ragged, and the [dp] microbatch), on each of its plans (the
-   one-block kernel with its weights staged in shared memory or streamed, or
-   the cluster kernel, its weights split over a thread-block cluster), the
-   card's plan equal to its Python mirror (``plan_forward``) at every shape;
-   bitwise equal at 1, 2, 4 and the plan's rows a block or cluster, at
-   clusters of 1, 2 and 4 (Lorenz) and of 2 and 4 (D=32), and over two runs
-   at the Lorenz shape and the d=32 microbatch;
+   takes (H=256), the 32-dimensional state of ``examples/highdim_ou_dp.py``
+   (one row ragged, and the [dp] microbatch) and H=128 (three layers at D=3,
+   two at D=1: clusters of 8 and 16, most of whose CTAs own no state
+   entry), on each of its plans (the one-block kernel with its weights
+   staged in shared memory or streamed, or the cluster kernel, its weights
+   split over a thread-block cluster of 2 to 16 CTAs), the card's plan
+   equal to its Python mirror (``plan_forward``) at every shape; bitwise
+   equal at 1, 2, 4 and the plan's rows a block or cluster, at clusters of
+   1, 2, 4 and 8 (Lorenz), 2, 4 and 8 (D=32) and 8 and 16 (H=128), and over
+   two runs at the Lorenz shape and the d=32 microbatch;
 4. K2, the path-sampler backward kernels, against autograd through the plain
    version, including Cholesky diagonals at and below the clamp and a
    non-zero noise cotangent, on each of its plans (the card's equal to
    ``plan_backward``'s); its gate pass gives K1's gates to the bit (the GRU
    update from its gates equals K1's stashed h); bitwise equal at 1, 2, 4
-   and the plan's rows, the cluster BPTT at clusters of 1, 2 and 4 within
-   the bars at the Lorenz shape, and over two runs at the Lorenz shape and
-   the d=32 microbatch;
+   and the plan's rows, the cluster BPTT within the bars of the plain
+   backward at the cluster sizes K1 runs at, and over two runs at the
+   Lorenz shape and the d=32 microbatch;
 5. K3/K4, the QK-prep kernels, against their plain versions, at the Lorenz
    shape (q as a strided view of a QKV projection) and two ragged ones;
 6. K5, the flash forward, against its plain forward, and K6+K7, the flash
@@ -53,8 +55,10 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    both at 1, 2 and 4 rows per block, K1 on its streaming plan and both on
    the cluster path at a cluster of one (OU, Lorenz), and both beside their
    bound at the [dp] microbatch (B=1024, T=100, D=32), the
-   ``highdim_ou_dp.py`` shape (B=4096, T=500, D=32) and the Lorenz shape
-   with the widest head (H=256); K3/K4 as the median
+   ``highdim_ou_dp.py`` shape (B=4096, T=500, D=32), the Lorenz shape
+   with the widest head (H=256) and the ladder's 128-wide heads (Lorenz r3:
+   B=32, T=2000, 128 x 3; highdim r5: B=512, T=100, D=32, 128 x 2); K3/K4
+   as the median
    of five windows that each start with a cold L2, then over several such
    sets, each with the SM clock that ``nvidia-smi`` reads after it (their
    spread from set to set within one call); K7 beside its ``mma.sync`` time
@@ -405,7 +409,7 @@ SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     (37, 7, 3, 32, 3, "full", True, DT),                # ragged tile, tril, three layers
     (16, 9, 2, 16, 1, "diag", True, DT),                # diag mode, one layer
     # H=64 with three layers: K1's and K2's packed weights exceed a block's
-    # shared memory, so both read them from device memory (streaming)
+    # shared memory, so both split them over a cluster of 2
     (24, 40, 3, 64, 3, "full", True, DT),
     # H=96: K1's build for more than 8 warps of units (64 registers a thread)
     (9, 11, 2, 96, 2, "full", True, DT),
@@ -417,7 +421,17 @@ SHAPES = [  # (B, T, D, H, L, cholesky, clamp_cases, dt)
     (13, 7, 32, 64, 2, "full", True, DT),
     # the [dp] path's microbatch: batch 4096 in 4 microbatches on one card
     (1024, 100, 32, 64, 2, "full", False, DT),
+    # H=128 (the ladder's Lorenz r3 head, 128 x 3): clusters of 8, five of
+    # whose CTAs own no state entry; then D=1 at 128 x 2, where a cluster of
+    # 16 leaves fifteen without one
+    (10, 30, 3, 128, 3, "full", True, LZ_DT),
+    (7, 12, 1, 128, 2, "full", False, DT),
 ]
+# rows of SHAPES run twice (the same bits): the Lorenz shape and the d=32 microbatch
+TWICE = (1, 9)
+# rows of SHAPES whose K1 runs at other cluster sizes too (bitwise equal, and
+# within the bars), and whose K2 does (within the bars: its owners add C parts)
+CLUSTER_CHECKS = {1: (1, 2, 4, 8), 7: (2, 4, 8), 10: (8, 16), 11: (8, 16)}
 
 # more sampler shapes for [times]/[steps], timed beside their bound:
 # label -> (B, T, D, H, L, dt)
@@ -425,6 +439,8 @@ WIDE_SHAPES = {
     "d32": (1024, 100, 32, 64, 2, DT),            # the [dp] path's microbatch (4 a step)
     "highdim": (4096, 500, 32, 64, 2, DT),        # examples/highdim_ou_dp.py on one card
     "h256": (LZ_BATCH, 2000, 3, 256, 2, LZ_DT),   # the Lorenz shape with K1's widest head
+    "lorenz_r3": (LZ_BATCH, 2000, 3, 128, 3, LZ_DT),  # the ladder's Lorenz r3 head (clusters of 8)
+    "highdim_r5": (512, 100, 32, 128, 2, DT),     # the ladder's highdim r5 head (clusters of 8 and 16)
 }
 
 
@@ -470,8 +486,9 @@ def phase_forward(torch) -> float:
     shape (the card's plan equal to ``plan_forward``'s); K1 on that path at
     1, 2, 4 and the plan's rows a block or cluster gives the same bits
     (paths, raw, h_all: each row's arithmetic does not depend on its block);
-    the cluster kernel at clusters of 1, 2 and 4 gives the same bits at the
-    Lorenz shape and at clusters of 2 and 4 at D=32; two runs give the same
+    the cluster kernel at the clusters of ``CLUSTER_CHECKS`` gives the same
+    bits (1 to 8 at the Lorenz shape, 2 to 8 at D=32, 8 and 16 at H=128,
+    where D < C leaves CTAs without a state entry); two runs give the same
     bits at the Lorenz shape and at the d=32 microbatch; the rows cover the
     staged, the streaming and the cluster plan."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
@@ -503,7 +520,7 @@ def phase_forward(torch) -> float:
         same_bits({f"rows={r}": (o.paths, o.raw, o.h_all) for r, o in by_rows.items()}, f"K1 {SHAPES[i]}")
         log(f"[K1] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}; plan {plan_text(plan)} "
             f"(the mirror's); rows {rows} bitwise equal")
-        clusters = {1: (1, 2, 4), 7: (2, 4)}.get(i, ())
+        clusters = CLUSTER_CHECKS.get(i, ())
         if clusters:  # the cluster kernel at other cluster sizes: the same bits
             by_c = {c: ss._forward_cuda(spec, w, x0, gc, eps, save_h=True, path=ss.PATH_CLUSTER, cluster=c)
                     for c in clusters}
@@ -513,7 +530,7 @@ def phase_forward(torch) -> float:
                 worst = max(worst, max_err(getattr(by_c[clusters[0]], name), getattr(ref, name), FWD_RTOL,
                                            FWD_ATOL, f"K1 cluster {name} {SHAPES[i]}"))
             log(f"[K1] B={B} T={T} D={D}: the cluster kernel at clusters of {clusters} bitwise equal, within the bars")
-        if i in (1, len(SHAPES) - 1):  # the Lorenz shape and the d=32 microbatch: a second run, the same bits
+        if i in TWICE:  # a second run, the same bits
             again = ss._forward_cuda(spec, w, x0, gc, eps, save_h=True)
             first = by_rows[plan.rows]
             torch.cuda.synchronize()
@@ -575,10 +592,10 @@ def phase_backward(torch) -> float:
     on the plan by shape (the card's plan equal to ``plan_backward``'s);
     K2's gate pass gives K1's gates to the bit; K2's BPTT at 1, 2, 4 and the
     plan's rows a block or cluster gives the same bits (each row's arithmetic
-    does not depend on its block); the cluster BPTT at clusters of 1, 2 and
-    4 at the Lorenz shape within the bars; two runs give the same bits at the
-    Lorenz shape and at the d=32 microbatch; the rows cover the staged, the
-    streaming and the cluster path."""
+    does not depend on its block); the cluster BPTT at the clusters of
+    ``CLUSTER_CHECKS`` within the bars of the plain backward; two runs give
+    the same bits at the Lorenz shape and at the d=32 microbatch; the rows
+    cover the staged, the streaming and the cluster path."""
     from viforsdes_tpu_torch.ops import sde_sampler as ss
 
     n_sms, optin = device_limits(torch)
@@ -621,15 +638,16 @@ def phase_backward(torch) -> float:
         same_bits({f"rows={r}": (*g[:3], *g.weights) for r, g in by_rows.items()}, f"K2 {SHAPES[i]}")
         log(f"[K2] B={B} T={T} D={D} H={H} L={L} {chol}: max |err| so far {worst:.3e}; plan {plan_text(plan)} "
             f"(the mirror's); K1's gates to the bit; rows {rows} bitwise equal")
-        if i == 1:  # the cluster BPTT at clusters of 1, 2, 4 at the Lorenz shape: within the bars
-            one_block = by_rows[plan.rows]
-            for c in (1, 2, 4):
+        if i in CLUSTER_CHECKS:  # the cluster BPTT at other cluster sizes: within the bars of the plain backward
+            plain = ss._backward_plain(spec, w, x0, gc, eps, fwd, *tmaj)
+            for c in CLUSTER_CHECKS[i]:
                 g = ss._backward_cuda(spec, w, x0, gc, eps, fwd, *tmaj, path=ss.PATH_CLUSTER, cluster=c)
                 torch.cuda.synchronize()
-                for name, a, r in zip(fields, (*g[:3], *g.weights), (*one_block[:3], *one_block.weights)):
+                for name, a, r in zip(fields, (*g[:3], *g.weights), (*plain[:3], *plain.weights)):
                     worst = max(worst, max_err(a, r, BWD_RTOL, BWD_ATOL, f"K2 cluster={c} {name} {SHAPES[i]}"))
-            log(f"[K2] B={B} T={T} D={D}: the cluster BPTT at clusters of 1, 2, 4 within the bars")
-        if i in (1, len(SHAPES) - 1):  # a second run gives the same bits
+            log(f"[K2] B={B} T={T} D={D} H={H}: the cluster BPTT at clusters of {CLUSTER_CHECKS[i]} within the "
+                f"bars")
+        if i in TWICE:  # a second run gives the same bits
             again = grads(ss.sample_paths)
             torch.cuda.synchronize()
             for name, a, b in zip(names, got, again):
@@ -895,7 +913,8 @@ def phase_kernel_times(torch) -> dict:
     for w in wide.values():
         times.update(w["times"])
     log("[times] sampler (OU: B=128 T=100 D=1; _lorenz: B=32 T=2000 D=3; _d32: B=1024 T=100 D=32; "
-        "_highdim: B=4096 T=500 D=32; _h256: B=32 T=2000 D=3 H=256; H=64 L=2 unless named; _cluster1: "
+        "_highdim: B=4096 T=500 D=32; _h256: B=32 T=2000 D=3 H=256; _lorenz_r3: B=32 T=2000 D=3 H=128 L=3; "
+        "_highdim_r5: B=512 T=100 D=32 H=128; H=64 L=2 unless named; _cluster1: "
         "the cluster kernels on one CTA): " + json.dumps(times))
     for k, key in (("K1", "fwd"), ("K2", "bwd")):
         log(f"[steps] {k} at B=32 T=2000: {times[key + '_us_per_step_lorenz']:.3f} us/step "

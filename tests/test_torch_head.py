@@ -43,8 +43,8 @@ def _randn(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-def _params(d, n_layers, cholesky, seed, diag_bias=None):
-    head = JHead(d, CTX, PAR, JHeadConfig(hidden_dim=HID, num_layers=n_layers, cholesky=cholesky))
+def _params(d, n_layers, cholesky, seed, diag_bias=None, hid=HID):
+    head = JHead(d, CTX, PAR, JHeadConfig(hidden_dim=hid, num_layers=n_layers, cholesky=cholesky))
     params = jax.tree.map(np.asarray, head.init(jax.random.key(seed)))
     params["out_proj"]["w"] = 0.3 * _randn(seed + 1, *params["out_proj"]["w"].shape)
     if diag_bias is not None:
@@ -111,22 +111,32 @@ def test_plain_sampler_matches_jax_scan(d, n_layers, cholesky):
 
 
 @pytest.mark.parametrize(
-    "d,n_layers,cholesky,diag_bias",
-    [(1, 2, "full", None), (2, 1, "full", -0.5), (3, 2, "full", DIAG_MIN), (2, 2, "diag", -0.5)],
+    "d,n_layers,cholesky,diag_bias,hid",
+    [
+        pytest.param(1, 2, "full", None, HID, id="1-2-full-None"),
+        pytest.param(2, 1, "full", -0.5, HID, id="2-1-full--0.5"),
+        pytest.param(3, 2, "full", DIAG_MIN, HID, id=f"3-2-full-{DIAG_MIN}"),
+        pytest.param(2, 2, "diag", -0.5, HID, id="2-2-diag--0.5"),
+        # the ladder's heads: Lorenz r3 (128 x 3, D=3) and highdim r5 (128 x 2, D=32),
+        # which the card runs on clusters of 8 and 16
+        pytest.param(3, 3, "full", None, 128, id="3-3-full-None-128"),
+        pytest.param(32, 2, "full", None, 128, id="32-2-full-None-128"),
+    ],
 )
-def test_fused_bridge_matches_jax_fused_sampler(d, n_layers, cholesky, diag_bias):
+def test_fused_bridge_matches_jax_fused_sampler(d, n_layers, cholesky, diag_bias, hid):
     """Port ``FusedPathSampler`` (CPU: the kernels' plain versions) against JAX
     ``FusedPathSampler`` at ``interpret=True`` on the time-major contract, at
-    a diagonal inside, below and exactly at ``DIAG_MIN``."""
+    a diagonal inside, below and exactly at ``DIAG_MIN``, and at the ladder
+    rungs' head widths."""
     B, T = 4, 6
-    params = _params(d, n_layers, cholesky, seed=40 + d, diag_bias=diag_bias)
+    params = _params(d, n_layers, cholesky, seed=40 + d, diag_bias=diag_bias, hid=hid)
     x0, _, _, eps = _inputs(50 + d, B, T, d)
-    gc = _randn(60 + d, T, B, 3 * HID)
+    gc = _randn(60 + d, T, B, 3 * hid)
     ws = _weights(70 + d, B, T, d)
     n_tril = d if cholesky == "diag" else d * (d + 1) // 2
     chol_w = np.cos(np.arange(B * T * n_tril)).reshape(B, T, n_tril).astype(np.float32)
 
-    j_spec = JSpec(state_dim=d, hidden_dim=HID, num_layers=n_layers, time_step=DT,
+    j_spec = JSpec(state_dim=d, hidden_dim=hid, num_layers=n_layers, time_step=DT,
                    diag_min=DIAG_MIN, interpret=True, cholesky=cholesky)
     j_sampler = JFused(j_spec)
 
@@ -137,7 +147,7 @@ def test_fused_bridge_matches_jax_fused_sampler(d, n_layers, cholesky, diag_bias
     jargs = [jax.tree.map(jnp.asarray, params), jnp.asarray(x0), jnp.asarray(gc), jnp.asarray(eps)]
     (_, j_out), j_grads = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True))(*jargs)
 
-    head = DiffusionTransitionHead(d, CTX, PAR, HeadConfig(hidden_dim=HID, num_layers=n_layers, cholesky=cholesky))
+    head = DiffusionTransitionHead(d, CTX, PAR, HeadConfig(hidden_dim=hid, num_layers=n_layers, cholesky=cholesky))
     p = tree_map(lambda t: t.requires_grad_(), params_from_numpy(params))
     xs = [torch.from_numpy(a.copy()).requires_grad_() for a in (x0, gc, eps)]
     t_out = ss.sample_paths(head.spec(DT), ss.prep_weights(head.spec(DT), p), *xs)

@@ -17,6 +17,9 @@ import torch
 from viforsdes_tpu_torch.ops import sde_sampler as ss
 
 N_SMS, OPTIN = 132, 232448  # an H100: multiprocessors, opt-in shared memory a block
+# the clusters an H100 SXM runs at once at one CTA a multiprocessor
+# (cudaOccupancyMaxActiveClusters), by cluster size
+CARD_SLOTS = {2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def _case(d, h, n_layers, cholesky, batch, steps, seed):
@@ -40,7 +43,7 @@ def _cluster_plan(spec, cluster, rows=1):
     """The cluster path's plan at ``cluster`` CTAs (as ``make_fwd_plan``
     gives it when asked for that cluster)."""
     smem, floats, uc, nop, slots = ss._cluster_forward_smem(spec, cluster, rows)
-    rw = min(rows, 4)
+    rw = ss._cluster_forward_rw(uc, rows)
     return ss.ForwardPlan(ss.PATH_CLUSTER, cluster, rows, 32 * (uc // 8) * (rows // rw), smem, floats,
                           0, 0, uc, nop, slots, rw)
 
@@ -111,12 +114,15 @@ def model_cluster_forward(spec, plan, packed, layout, x0, gc, eps):
 @pytest.mark.parametrize("d,h,n_layers,cholesky,cluster", [
     (32, 64, 2, "full", 4), (32, 64, 2, "full", 2), (5, 16, 3, "full", 2),
     (3, 64, 2, "full", 1), (6, 32, 1, "diag", 4), (2, 96, 2, "full", 4),
+    # clusters of 8 and 16, where D < C leaves CTAs without a state entry
+    (3, 128, 3, "full", 8), (1, 128, 2, "full", 16), (3, 64, 2, "full", 8), (3, 128, 3, "full", 16),
+    (32, 128, 2, "full", 8), (32, 128, 2, "full", 16), (5, 128, 1, "diag", 16),
 ])
 def test_packed_cluster_slices_give_the_plain_forward(d, h, n_layers, cholesky, cluster):
     """Every CTA's slice of the packed weights and its row of the layout,
     read as the kernel reads them, give the plain loop's paths and raw
     outputs: each hidden unit and output column is computed once, in the
-    CTA that owns it."""
+    CTA that owns it, also in the CTAs that own no state entry."""
     spec, w, x0, gc, eps = _case(d, h, n_layers, cholesky, 5, 6, d + h + cluster)
     plan = _cluster_plan(spec, cluster)
     packed = ss.pack_forward_weights(spec, w, plan)
@@ -128,11 +134,15 @@ def test_packed_cluster_slices_give_the_plain_forward(d, h, n_layers, cholesky, 
 
 
 @pytest.mark.parametrize("d,cholesky,cluster", [(32, "full", 4), (32, "full", 2), (7, "full", 4), (3, "full", 1),
-                                                (6, "diag", 4), (1, "full", 1)])
+                                                (6, "diag", 4), (1, "full", 1), (3, "full", 8), (1, "full", 16),
+                                                (32, "full", 8), (32, "full", 16), (12, "diag", 16),
+                                                (20, "full", 8)])
 def test_layout_gives_every_output_column_to_one_cta(d, cholesky, cluster):
     """The CTAs' columns cover mu and every tril value once; each entry's
     segment is mu_i then row i of the tril values in order; the entries are
-    dealt out in a snake, and the widest CTA sets ``nop`` (a multiple of 32)."""
+    dealt out in a snake, and the widest CTA sets ``nop`` (a multiple of 32).
+    A CTA that owns no entry (D < C) holds only padding: every column, entry
+    slot and tril index -1."""
     nop, slots = ss.cluster_columns(d, cholesky, cluster)
     layout = ss.cluster_layout(d, cholesky, cluster)
     n_out = d + (d if cholesky == "diag" else d * (d + 1) // 2)
@@ -154,6 +164,9 @@ def test_layout_gives_every_output_column_to_one_cta(d, cholesky, cluster):
             assert mj[seg + 1 : seg + 1 + len(k)].tolist() == [int(tril_cols[j]) for j in k]
             assert (mslot[seg : seg + 1 + len(k)] == s).all()
         assert (mslot[(cols[c] < 0)] == -1).all() and (mj[(cols[c] < 0)] == -1).all()
+        if not entries:
+            assert (cols[c] == -1).all() and (layout[c, nop : nop + 2 * slots] == -1).all()
+    assert sum(1 for c in range(cluster) if (cols[c] >= 0).any()) == min(d, cluster)
 
 
 @pytest.mark.parametrize("cholesky", ["full", "diag"])
@@ -179,15 +192,17 @@ def test_row_indexed_l_eps_gives_the_tril_table_result(cholesky):
 
 
 @pytest.mark.parametrize("d", [1, 3, 32])
-@pytest.mark.parametrize("h", [16, 64, 256])
+@pytest.mark.parametrize("h", [16, 64, 128, 256])
 @pytest.mark.parametrize("batch", [32, 128, 1024, 4096])
 def test_plan_mirror(d, h, batch):
     """``plan_forward`` on an H100: the one-block kernel stages its weights
-    wherever they fit a block; else the cluster kernel at the cluster that
-    takes the fewest waves, holding every slice within the block's shared
-    memory and at most 1024 threads, its rows by ``cluster_rows``; else the
-    one-block kernel streams them (H=256 at L=2), where its work buffers fit
-    (not at D=32, H=256 past one row a block, which has no plan)."""
+    wherever they fit a block; else the cluster kernel at the cluster of 2,
+    4, 8 or 16 that takes the fewest waves (the smaller on a tie), holding
+    every slice within the block's shared memory and at most 768 threads,
+    its rows by ``cluster_rows`` and the fewest rows a warp whose warps fit;
+    else the one-block kernel streams them (H=256 at L=2), where its work
+    buffers fit (not at D=32, H=256 past one row a block, which has no
+    plan)."""
     spec = ss.SamplerSpec(d, h, 2, 0.05, 1e-3, "full")
     block_rows = ss.cluster_rows(batch, N_SMS, 4)
     _, staged, streaming, _, _ = ss._block_forward_smem(spec, block_rows)
@@ -201,18 +216,22 @@ def test_plan_mirror(d, h, batch):
     if staged <= OPTIN:
         assert (plan.path, plan.cluster, plan.rows) == (ss.PATH_STAGED, 1, block_rows)
     elif plan.path == ss.PATH_CLUSTER:
-        assert plan.cluster in (2, 4) and h % (8 * plan.cluster) == 0
+        assert plan.cluster in ss.CLUSTER_SIZES and h % (8 * plan.cluster) == 0
         max_rows = ss._cluster_forward_max_rows(spec, plan.cluster, OPTIN)
         assert plan.rows == ss.cluster_rows(batch, N_SMS // plan.cluster, max_rows)
-        assert plan.uc == h // plan.cluster and plan.rw == min(plan.rows, 4)
-        for other in (2, 4):
+        groups = h // plan.cluster // 8
+        assert plan.uc == h // plan.cluster and plan.rw in (1, 2, 4) and plan.rw <= max(plan.rows, 1)
+        assert plan.threads == 32 * groups * (plan.rows // plan.rw) <= ss.CLUSTER_THREADS
+        assert plan.rw == 1 or 32 * groups * (2 * plan.rows // plan.rw) > ss.CLUSTER_THREADS
+        waves = ss.cluster_waves(batch, N_SMS // plan.cluster, max_rows)
+        for other in ss.CLUSTER_SIZES:
             if other != plan.cluster and h % (8 * other) == 0:
                 m = ss._cluster_forward_max_rows(spec, other, OPTIN)
-                assert m == 0 or (ss.cluster_waves(batch, N_SMS // other, m)
-                                  >= ss.cluster_waves(batch, N_SMS // plan.cluster, max_rows))
+                other_waves = ss.cluster_waves(batch, N_SMS // other, m) if m else None
+                assert m == 0 or other_waves > waves or (other_waves == waves and other > plan.cluster)
     else:
         assert plan.path == ss.PATH_STREAMING and plan.rows == block_rows
-        assert all(ss._cluster_forward_max_rows(spec, c, OPTIN) == 0 for c in (2, 4) if h % (8 * c) == 0)
+        assert all(ss._cluster_forward_max_rows(spec, c, OPTIN) == 0 for c in ss.CLUSTER_SIZES if h % (8 * c) == 0)
 
 
 def test_plan_at_the_examples_shapes():
@@ -234,6 +253,36 @@ def test_plan_at_the_examples_shapes():
     # not 33: the rule then takes 36 rows, so that the 29 clusters of B=1024 fit a wave
     p = ss.plan_forward(ss.SamplerSpec(32, 64, 2, 0.05, 1e-3, "full"), 1024, N_SMS, OPTIN, {2: 66, 4: 30})
     assert (p.cluster, p.rows) == (4, 36) and -(-1024 // p.rows) <= 30
+    # with the card's slots at every size (15 clusters of 8, 7 of 16), the
+    # examples' and the ladder's H=64 shapes keep their plans: path, cluster,
+    # rows, threads, shared memory, rows a warp
+    def card(d, h, n_layers, batch):
+        return ss.plan_forward(ss.SamplerSpec(d, h, n_layers, 0.05, 1e-3, "full"), batch, N_SMS, OPTIN, CARD_SLOTS)
+
+    kept = {(1, 64, 2, 128): (ss.PATH_STAGED, 1, 1, 288, 204976, 0),     # OU
+            (3, 64, 2, 32): (ss.PATH_STAGED, 1, 1, 288, 209408, 0),      # Lorenz-63
+            (2, 64, 2, 64): (ss.PATH_STAGED, 1, 1, 288, 207024, 0),      # SIR
+            (2, 64, 2, 24): (ss.PATH_STAGED, 1, 1, 288, 207024, 0),      # LV
+            (32, 64, 2, 1024): (ss.PATH_CLUSTER, 4, 36, 576, 189504, 4),  # the [dp] microbatch
+            (32, 64, 2, 4096): (ss.PATH_CLUSTER, 4, 48, 768, 218688, 4)}  # highdim_ou_dp on one card
+    for shape, want in kept.items():
+        p = card(*shape)
+        assert (p.path, p.cluster, p.rows, p.threads, p.smem_bytes, p.rw) == want, shape
+
+
+def test_plan_at_the_ladder_h128_rungs():
+    """The ladder's 128-wide heads take clusters of 8 (the fewest waves; 16
+    ties and loses to the smaller): Lorenz r3 (128 x 3, B=32) 4 rows a
+    cluster, its 8 clusters one wave of the card's 15, a warp a row (256
+    threads); highdim r5 (128 x 2, D=32, B=512) 20 rows, two waves, 2 rows a
+    warp (640 threads)."""
+    r3 = ss.plan_forward(ss.SamplerSpec(3, 128, 3, 0.01, 1e-3, "full"), 32, N_SMS, OPTIN, CARD_SLOTS)
+    assert (r3.path, r3.cluster, r3.rows, r3.threads, r3.rw, r3.uc) == (ss.PATH_CLUSTER, 8, 4, 256, 1, 16)
+    assert r3.slots == 1 and ss.cluster_columns(3, "full", 8) == (32, 1)  # five CTAs own no entry
+    h5 = ss.plan_forward(ss.SamplerSpec(32, 128, 2, 0.05, 1e-3, "full"), 512, N_SMS, OPTIN, CARD_SLOTS)
+    assert (h5.path, h5.cluster, h5.rows, h5.threads, h5.rw) == (ss.PATH_CLUSTER, 8, 20, 640, 2)
+    assert ss.cluster_waves(512, CARD_SLOTS[8], ss._cluster_forward_max_rows(
+        ss.SamplerSpec(32, 128, 2, 0.05, 1e-3, "full"), 8, OPTIN)) == 2
 
 
 @pytest.mark.parametrize("batch,per_wave,max_rows,want", [
@@ -352,12 +401,16 @@ def model_cluster_backward(spec, plan, packed, layout, w, x0, gc, eps, fwd, d_pa
 
 @pytest.mark.parametrize("d,h,n_layers,cholesky,cluster", [
     (32, 64, 2, "full", 4), (5, 16, 3, "full", 2), (3, 64, 2, "full", 1), (6, 32, 1, "diag", 4),
+    # clusters of 8 and 16, where D < C leaves CTAs without a state entry
+    (3, 128, 3, "full", 8), (1, 128, 2, "full", 16), (3, 64, 2, "full", 8), (32, 128, 2, "full", 16),
+    (3, 128, 3, "full", 16), (5, 128, 1, "diag", 16),
 ])
 def test_packed_cluster_bptt_slices_give_the_plain_backward(d, h, n_layers, cholesky, cluster):
     """Every CTA's packed slice of the transposed products (its units' rows
     of W_hh and W_x / W_ih, its columns of W_out) and its row of the layout,
     read as ``bptt_cluster_kernel`` reads them, with each product summed as
-    the C CTAs' parts, give the plain backward's d_gates_const, d_eps and
+    the C CTAs' parts (a CTA without a state entry adds zero parts of
+    d_eps and d_x), give the plain backward's d_gates_const, d_eps and
     d_x0."""
     spec, w, x0, gc, eps = _case(d, h, n_layers, cholesky, 4, 5, 7 * d + h + cluster)
     rng = np.random.default_rng(11)
@@ -374,17 +427,18 @@ def test_packed_cluster_bptt_slices_give_the_plain_backward(d, h, n_layers, chol
 
 
 @pytest.mark.parametrize("d", [1, 3, 32])
-@pytest.mark.parametrize("h", [16, 64, 256])
+@pytest.mark.parametrize("h", [16, 64, 128, 256])
 @pytest.mark.parametrize("batch", [32, 1024, 4096])
 def test_backward_plan_mirror(d, h, batch):
     """``plan_backward`` on an H100, by K1's rule: staged in one block where
-    the matrices fit, else clusters of 2 or 4 in the fewest waves within
-    the shared memory, else streaming."""
+    the matrices fit, else clusters of 2, 4, 8 or 16 in the fewest waves
+    (the smaller on a tie) within the shared memory, each task of a layer's
+    products a warp of its own where the threads allow, else streaming."""
     spec = ss.SamplerSpec(d, h, 2, 0.05, 1e-3, "full")
     block_rows = ss.cluster_rows(batch, N_SMS, 4)
     _, staged, streaming, _, _, _ = ss._block_backward_smem(spec, block_rows)
     if staged > OPTIN and streaming > OPTIN and all(
-            ss._cluster_backward_max_rows(spec, c, OPTIN) == 0 for c in (2, 4) if h % (8 * c) == 0):
+            ss._cluster_backward_max_rows(spec, c, OPTIN) == 0 for c in ss.CLUSTER_SIZES if h % (8 * c) == 0):
         with pytest.raises(ValueError, match="no plan"):
             ss.plan_backward(spec, batch, N_SMS, OPTIN)
         return
@@ -393,9 +447,20 @@ def test_backward_plan_mirror(d, h, batch):
     if staged <= OPTIN:
         assert (plan.path, plan.rows) == (ss.PATH_STAGED, block_rows)
     elif plan.path == ss.PATH_CLUSTER:
+        assert plan.cluster in ss.CLUSTER_SIZES
         max_rows = ss._cluster_backward_max_rows(spec, plan.cluster, OPTIN)
         assert plan.rows == ss.cluster_rows(batch, N_SMS // plan.cluster, max_rows)
         assert plan.threads <= ss.CLUSTER_THREADS and plan.uc * plan.cluster == h
+        assert plan.threads >= ss._cluster_backward_threads(plan.rows, plan.uc)
+        tasks = -(-(h + max(d, h)) // 32) * (plan.rows // plan.rw)  # a layer's product tasks, at most
+        assert 32 * tasks <= plan.threads or plan.rw == min(plan.rows, 4)
+        assert plan.threads >= min(ss.CLUSTER_THREADS, 32 * -(-tasks // ss.BPTT_TASKS_PER_WARP))
+        waves = ss.cluster_waves(batch, N_SMS // plan.cluster, max_rows)
+        for other in ss.CLUSTER_SIZES:
+            m = ss._cluster_backward_max_rows(spec, other, OPTIN) if h % (8 * other) == 0 else 0
+            if other != plan.cluster and m:
+                other_waves = ss.cluster_waves(batch, N_SMS // other, m)
+                assert other_waves > waves or (other_waves == waves and other > plan.cluster)
     else:
         assert plan.path == ss.PATH_STREAMING
 
@@ -409,3 +474,41 @@ def test_backward_plan_at_the_examples_shapes():
     assert plan(1, 128).path == ss.PATH_STAGED and plan(3, 32).path == ss.PATH_STAGED
     assert (plan(32, 1024).path, plan(32, 1024).cluster, plan(32, 1024).rows) == (ss.PATH_CLUSTER, 4, 32)
     assert (plan(32, 4096).cluster, plan(32, 4096).rows) == (4, 32)
+
+    def card(d, h, n_layers, batch):
+        return ss.plan_backward(ss.SamplerSpec(d, h, n_layers, 0.05, 1e-3, "full"), batch, N_SMS, OPTIN, CARD_SLOTS)
+
+    kept = {(1, 64, 2, 128): (ss.PATH_STAGED, 1, 1, 512, 168004, 0),     # OU
+            (3, 64, 2, 32): (ss.PATH_STAGED, 1, 1, 512, 170016, 0),      # Lorenz-63
+            (2, 64, 2, 64): (ss.PATH_STAGED, 1, 1, 512, 168868, 0),      # SIR
+            (2, 64, 2, 24): (ss.PATH_STAGED, 1, 1, 512, 168868, 0),      # LV
+            (32, 64, 2, 1024): (ss.PATH_CLUSTER, 4, 36, 576, 216768, 4),  # the [dp] microbatch
+            (32, 64, 2, 4096): (ss.PATH_CLUSTER, 4, 36, 576, 216768, 4)}  # highdim_ou_dp on one card
+    for shape, want in kept.items():
+        p = card(*shape)
+        assert (p.path, p.cluster, p.rows, p.threads, p.smem_bytes, p.rw) == want, shape
+
+
+def test_backward_plan_at_the_ladder_h128_rungs():
+    """K2's BPTT at the ladder's 128-wide heads: Lorenz r3 on clusters of 8
+    at 4 rows, 2 rows a warp so that each of a layer's 16 product tasks has
+    a warp (512 threads); highdim r5 on clusters of 16 at 40 rows (two
+    waves of the card's 7, where clusters of 8 take three), 4 rows a warp
+    and 768 threads: its 80 product tasks a layer outnumber any CTA's warps,
+    so as many warps as two tasks each would take, at most 768 threads."""
+    r3 = ss.plan_backward(ss.SamplerSpec(3, 128, 3, 0.01, 1e-3, "full"), 32, N_SMS, OPTIN, CARD_SLOTS)
+    assert (r3.path, r3.cluster, r3.rows, r3.threads, r3.rw) == (ss.PATH_CLUSTER, 8, 4, 512, 2)
+    spec = ss.SamplerSpec(32, 128, 2, 0.05, 1e-3, "full")
+    h5 = ss.plan_backward(spec, 512, N_SMS, OPTIN, CARD_SLOTS)
+    assert (h5.path, h5.cluster, h5.rows, h5.threads, h5.rw) == (ss.PATH_CLUSTER, 16, 40, 768, 4)
+    assert [ss.cluster_waves(512, CARD_SLOTS[c], ss._cluster_backward_max_rows(spec, c, OPTIN))
+            for c in (8, 16)] == [3, 2]
+
+
+@pytest.mark.parametrize("uc,rows,want", [(16, 4, 1), (8, 4, 1), (16, 20, 2), (8, 48, 2), (16, 36, 4), (16, 48, 4),
+                                          (16, 1, 1), (16, 2, 1), (32, 24, 4), (64, 4, 2)])
+def test_rows_a_warp(uc, rows, want):
+    """K1's cluster path carries the fewest rows a warp (1, 2 or 4) whose
+    warps fit 768 threads: a step's rows over as many warps as a CTA holds."""
+    assert ss._cluster_forward_rw(uc, rows) == want
+    assert 32 * (uc // 8) * (rows // want) <= ss.CLUSTER_THREADS or want == 4

@@ -2,7 +2,7 @@
 """Time K1 and K2, the path-sampler kernels, as built from several versions
 of the package on one NVIDIA GPU, in turns.
 
-    python3 tools/time_sampler.py [--turns 2] [--shapes ou,lorenz,d32,d32_wide] [LABEL=DIR ...]
+    python3 tools/time_sampler.py [--turns 2] [--shapes ou,lorenz,...] [--rungs lorenz,...] [LABEL=DIR ...]
 
 ``tree`` is the package beside this script. Each ``LABEL=DIR`` names another
 version: DIR is the root of a copy of the repository (``git archive`` of
@@ -18,6 +18,15 @@ version's K1 and K2 are timed with CUDA events, in turns (each turn runs the
 versions in order, then in reverse). Where a version's ``_forward_cuda``
 takes ``staged``, K1 is also timed on its streaming plan. The card's name
 and power limit come first, the medians last, as one JSON line.
+
+``--rungs`` names rungs of ``examples_torch/quality_eval.py`` (``RUNGS``;
+``--shapes ""`` times none of the shapes): each trains ``RUNG_STEPS`` steps
+at its committed recipe and full width in one CUDA graph, then every
+version captures a chunk of as many steps on its own K1 and K2 (the tree's
+``sampler_forward`` and ``sampler_backward`` swapped for the version's
+while it captures), the chunks' replays are timed in turns, and one replay
+of each is profiled: device ms per step, and K1 and K2's three parts (the
+gate pass, the BPTT, the weight gradients) by kernel name.
 """
 
 from __future__ import annotations
@@ -28,19 +37,35 @@ import importlib.util
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# label -> (B, T, D, H, L, dt): the OU and Lorenz paths, the [dp] microbatch
-# and examples/highdim_ou_dp.py's batch on one card
+# label -> (B, T, D, H, L, dt): the OU and Lorenz paths, the [dp] microbatch,
+# examples/highdim_ou_dp.py's batch on one card, the ladder's Lorenz r3 and
+# highdim r5 heads (128 x 3, 128 x 2) and the Lorenz shape at K1's widest head
 SHAPES = {
     "ou": (128, 100, 1, 64, 2, 0.05),
     "lorenz": (32, 2000, 3, 64, 2, 0.01),
     "d32": (1024, 100, 32, 64, 2, 0.05),
     "d32_wide": (4096, 500, 32, 64, 2, 0.05),
+    "lorenz_r3": (32, 2000, 3, 128, 3, 0.01),
+    "highdim_r5": (512, 100, 32, 128, 2, 0.05),
+    "h256": (32, 2000, 3, 256, 2, 0.01),
+}
+RUNG_STEPS = 10  # steps of a rung's run, and of each version's chunk
+RUNG_WINDOWS = 2  # timed replays of each version's chunk a turn
+# the sampler's device kernels by the profiler's name: K1, and K2's three passes
+SAMPLER_KERNELS = {
+    "K1": r"sde_sampler::fwd_(cluster_)?kernel",
+    "K2 gates": r"sde_sampler::gates_kernel",
+    "K2 bptt": r"sde_sampler::bptt_(cluster_)?kernel",
+    "K2 wgrad": r"sde_sampler::wgrad_(partial|sum)",
 }
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5   # chip_smoke.py's bars
 BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
@@ -181,11 +206,104 @@ def rel_err(a, ref, rtol: float, atol: float) -> float:
     return float(((a - ref).abs() / bar).max())
 
 
+def rung_trainer(name: str):
+    """The trainer of one rung (``quality_eval.RUNGS``) after ``RUNG_STEPS``
+    steps at its committed recipe, in one chunk of as many steps."""
+    from examples_torch import quality_eval as qe
+    from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer
+
+    fn, kw, _, _ = qe.RUNGS[name]
+    seen = []
+    saved = VariationalInferenceTrainer.train
+
+    def train(self, *args, **kwargs):
+        seen.append(self)
+        return saved(self, *args, **kwargs)
+
+    VariationalInferenceTrainer.train = train
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            fn(RUNG_STEPS, **kw, opts=qe.RunOptions(steps_per_call=RUNG_STEPS, out_dir=out))
+    finally:
+        VariationalInferenceTrainer.train = saved
+    (trainer,) = seen
+    return trainer
+
+
+def replay_profile(torch, chunk, step: int) -> dict:
+    """Device ms per step of one replay of ``chunk`` and of the sampler's
+    kernels in it (``SAMPLER_KERNELS``), with their launches per replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk(step)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") else \
+        "self_cuda_time_total"
+    n = chunk.length
+    out = {"device_ms_per_step": sum(getattr(e, attr) for e in events) / 1e3 / n}
+    for kern, pattern in SAMPLER_KERNELS.items():
+        hits = [e for e in events if re.search(pattern, e.key)]
+        out[kern] = {"ms_per_step": sum(getattr(e, attr) for e in hits) / 1e3 / n,
+                     "launches_per_replay": sum(e.count for e in hits)}
+    return out
+
+
+def rung_times(torch, tree, mods: dict, name: str, turns: int) -> dict:
+    """One rung trained ``RUNG_STEPS`` steps, then each version's chunk of
+    as many steps, captured on that version's K1 and K2: ms/step of the
+    replays in turns (``RUNG_WINDOWS`` a version and turn, each ended by a
+    synchronize), then one profiled replay of each."""
+    import gc
+
+    from viforsdes_tpu_torch.inference.chunk import TrainChunk
+
+    trainer = rung_trainer(name)
+    step = trainer._completed_steps
+    chunks = {}
+    saved = tree.sampler_forward, tree.sampler_backward
+    try:
+        for label, ss in mods.items():
+            tree.sampler_forward, tree.sampler_backward = ss.sampler_forward, ss.sampler_backward
+            chunks[label] = TrainChunk(trainer, RUNG_STEPS)
+            chunks[label](step)  # the eager warm chunk, then the capture
+            step += RUNG_STEPS
+    finally:
+        tree.sampler_forward, tree.sampler_backward = saved
+    times = {label: [] for label in chunks}
+    labels = list(chunks)
+    for _ in range(turns):
+        for label in [*labels, *reversed(labels)]:
+            for _ in range(RUNG_WINDOWS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chunks[label](step)
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3 / RUNG_STEPS)
+                step += RUNG_STEPS
+    profiles = {}
+    for label, chunk in chunks.items():
+        profiles[label] = replay_profile(torch, chunk, step)
+        step += RUNG_STEPS
+    med = {label: statistics.median(v) for label, v in times.items()}
+    print(f"[rung {name}] ms/step of {RUNG_STEPS}-step graph replays in turns: "
+          + "; ".join(f"{k} {m:.3f} (min {min(times[k]):.3f}, max {max(times[k]):.3f})" for k, m in med.items())
+          + f"; one profiled replay each: {json.dumps(profiles)}", flush=True)
+    del trainer, chunks
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"median_ms_per_step": med, "windows_ms_per_step": times, "profiles": profiles}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--turns", type=int, default=2)
     parser.add_argument("--launches", type=int, default=3, help="launches per timed window")
     parser.add_argument("--shapes", default=",".join(SHAPES))
+    parser.add_argument("--rungs", default="", help="rungs of examples_torch/quality_eval.py to time end to end")
     parser.add_argument("--no-check", action="store_true", help="time versions without holding them to the plain path")
     parser.add_argument("versions", nargs="*", default=[], help="LABEL=DIR: another version of the repository")
     args = parser.parse_args()
@@ -212,8 +330,8 @@ def main() -> int:
                 print(f"[ptxas {label}] {line.strip()}", flush=True)
         mods[label] = load_module(label, os.path.abspath(root), path)
 
-    result = {"card": smi, "launches_per_window": args.launches, "shapes": {}}
-    for name in args.shapes.split(","):
+    result = {"card": smi, "launches_per_window": args.launches, "shapes": {}, "rungs": {}}
+    for name in filter(None, args.shapes.split(",")):
         shape = SHAPES[name]
         spec, w, x0, gc, eps, (d_paths, d_means, d_cholv) = make_case(torch, tree, shape, 7)
         ref_f = ref_b = None
@@ -270,6 +388,8 @@ def main() -> int:
         del arms, fwd, bwd_args, gc, eps, d_paths, d_means, d_cholv, ref_f, ref_b
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    for name in filter(None, args.rungs.split(",")):
+        result["rungs"][name] = rung_times(torch, tree, mods, name, args.turns)
     print(json.dumps(result))
     return 0
 

@@ -9,6 +9,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace sde_sampler {
 
 namespace cg = cooperative_groups;
@@ -99,6 +101,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
                :: "r"(addr), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
+// 16 bytes global -> shared (both 16-byte aligned); zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -120,11 +129,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //    entry in increasing i, mu_i and then row i of the tril values (its
 //    "segment"), padded to `nop` columns, a multiple of 32.
 // What a CTA computes that others need travels through distributed shared
-// memory (stores into the peers' buffers), one cluster barrier per dependent
-// phase. At C = 1 the same kernel runs on one CTA, its barriers those of
-// the block.
+// memory (stores into the peers' buffers), one exchange (below) per
+// dependent phase. At C = 1 the same kernel runs on a cluster of one CTA.
+// Where D < C, some CTAs own no state entry (their entry slots hold -1) and
+// only compute their units and share the products.
+//
+// Clusters of up to 8 CTAs are portable on Hopper; 16 is not, and a kernel
+// is launched or queried at 16 only after it allows it (`allow_cluster`).
 
-constexpr int kMaxCluster = 4;
+constexpr int kMaxCluster = 16;
+constexpr int kPortableCluster = 8;
 
 // Threads of a cluster kernel's CTA, at most: 24 warps leave ptxas 85
 // registers a thread (at 1024 the rows' accumulators spilled).
@@ -221,10 +235,106 @@ __device__ __forceinline__ void cluster_barrier(int C) {
   }
 }
 
+// ------------------------------------------------------------- exchanges
+//
+// Inside the time loops a value goes to a peer (or to the CTA itself) by
+// st.async: the store into the peer's shared memory counts its 4 bytes on
+// an mbarrier there, and each CTA waits on its own mbarrier until the bytes
+// it expects from the whole cluster have landed. A cluster barrier would
+// order the same stores, but its arrival fences all of the thread's memory
+// traffic at GPU scope (MEMBAR.ALL.GPU: about 1000 cycles an arrival in K1
+// at H=128) and its wait invalidates L1; an exchange makes no one wait but
+// the reader, for the bytes it reads. Exchanges count their bytes on two
+// mbarriers in turn (exchange k on mbarrier k & 1, phase k / 2), and thread
+// 0 posts the bytes of exchange k + 2 once it has seen exchange k complete:
+// a peer sends into exchange k + 2 only once it holds all of exchange
+// k + 1, and every CTA sends its part of k + 1 only after all of its
+// threads have seen k complete (every warp sends into an exchange that
+// follows a wait without a block barrier between, and a warp leaves the
+// wait together), so no byte lands in the wrong phase and no buffer is
+// overwritten while it is read.
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of the same offset in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Static shared memory of a cluster kernel: the exchanges' two mbarriers. A
+// plan's dynamic shared memory fits `optin` less these.
+constexpr size_t kExchangeSmem = 2 * sizeof(uint64_t);
+
+struct Exchanges {
+  uint64_t* bar;  // [2] mbarriers in shared memory
+  int done;       // exchanges completed
+
+  // Thread 0, before the cluster's first barrier: both mbarriers, and the
+  // bytes of the first two exchanges.
+  __device__ void init(uint32_t bytes0, uint32_t bytes1) {
+    done = 0;
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(shared_addr(bar + i)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    expect(0, bytes0);
+    expect(1, bytes1);
+  }
+
+  __device__ void expect(int i, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(shared_addr(bar + i)), "r"(bytes) : "memory");
+  }
+
+  // v into buf[idx] of CTA `rank`, counted on that CTA's mbarrier of the
+  // current exchange.
+  __device__ __forceinline__ void send(float* buf, size_t idx, int rank, float v) const {
+    const uint32_t dst = peer_addr(shared_addr(buf + idx), rank);
+    const uint32_t mbar = peer_addr(shared_addr(bar + (done & 1)), rank);
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+                 :: "r"(dst), "r"(__float_as_uint(v)), "r"(mbar) : "memory");
+  }
+
+  // Every thread: wait until the current exchange has landed here (a wait
+  // that never ends traps after 2^26 polls, seconds beyond any real one,
+  // instead of hanging the card); thread 0 then posts the bytes of the
+  // exchange two later, `bytes_next2`.
+  __device__ void finish(uint32_t bytes_next2) {
+    const uint32_t mbar = shared_addr(bar + (done & 1)), parity = (done >> 1) & 1;
+    for (uint32_t polls = 0;; ++polls) {
+      uint32_t ok;
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(ok) : "r"(mbar), "r"(parity) : "memory");
+      if (ok) break;
+      if (polls == (1u << 26)) __trap();
+    }
+    __syncwarp();  // no lane sends into the next exchange before its whole warp has seen this one
+    if (threadIdx.x == 0) expect(done & 1, bytes_next2);
+    ++done;
+  }
+};
+
+// Clusters above kPortableCluster CTAs need the kernel's leave, before the
+// occupancy query and before the launch.
+template <typename Kernel>
+inline cudaError_t allow_cluster(Kernel kernel, int C) {
+  if (C <= kPortableCluster) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 // Launch `kernel` on `clusters` clusters of C CTAs.
 template <typename... Args>
 inline cudaError_t launch_clusters(void (*kernel)(Args...), int clusters, int C, int threads, size_t smem,
                                    cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_cluster(kernel, C);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * C, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
@@ -242,11 +352,12 @@ inline cudaError_t launch_clusters(void (*kernel)(Args...), int clusters, int C,
 
 // How many clusters of C CTAs of `kernel` (`threads`, `smem` bytes each) the
 // card holds at once: at most n_sms / C, fewer where the multiprocessors of
-// a GPC do not divide into whole clusters (30 clusters of 4 on an H100 SXM
-// at one CTA a multiprocessor).
+// a GPC do not divide into whole clusters (30 clusters of 4 and 15 of 8 on
+// an H100 SXM at one CTA a multiprocessor).
 template <typename... Args>
 inline cudaError_t max_active_clusters(void (*kernel)(Args...), int C, int threads, size_t smem, int* out) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = allow_cluster(kernel, C);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1, 1);

@@ -24,9 +24,9 @@
 //     K1's (`gate_sums`, `gru_gates` in sde_sampler.cuh), so the gates are
 //     K1's to the bit.
 //  2. the BPTT loop, by shape in `make_bwd_plan`: bptt_cluster_kernel
-//     (below: a cluster of 2 or 4 CTAs holding the matrices between them,
+//     (below: a cluster of 2 to 16 CTAs holding the matrices between them,
 //     K1's column split) where the matrices fit a cluster and not a block
-//     (a 32-dimensional state, H=64 with three layers, H=96); else
+//     (a 32-dimensional state, H=64 with three layers, H=96, H=128); else
 //     bptt_kernel, one block per `rows` batch rows, which walks the reverse
 //     steps as follows.
 //     - The matrices the loop reads (per layer, W_hh^T beside W_ih^T or
@@ -502,32 +502,34 @@ __global__ void wgrad_sum(const float* partial, int n_split, int ka, int kt, int
 // float4 {r, z, n, 0}), and the rows of W_out for its output columns
 // ([nop][H]). A transposed product is then a sum over the CTAs: each CTA
 // forms its part, over its own units or columns, of every output (a lane an
-// output, whole dot products over rw rows), stores it into the owner's
-// shared memory, and after one cluster barrier the owner adds the C parts
-// in CTA order. Per reverse step:
+// output, whole dot products over rw rows), sends it into the owner's
+// shared memory by st.async (one exchange, see sde_sampler.cuh), and once
+// the exchange has landed the owner adds the C parts in CTA order. Per
+// reverse step:
 //  - output phase: d_out of the CTA's columns (the Euler update's and the
 //    lower_bound rule's backward), its part of d_eps (its rows of L times
 //    the cotangent, summed along its entries' tril rows) and of
-//    dL/dh_top = d_out W_out^T; one cluster barrier;
+//    dL/dh_top = d_out W_out^T; one exchange;
 //  - each layer, top down: the GRU backward of its units (gate cotangents
 //    written out for the weight gradients), its parts of dh_{t-1} = d_gh
 //    W_hh^T and of the cotangent sent down (d_gi W_ih^T, or d_gi W_x^T for
-//    layer 0); one cluster barrier; the owners add the parts.
-// Parts are double-buffered by the parity of the barrier count, so a fast
+//    layer 0); one exchange; the owners add the parts.
+// Parts are double-buffered by the parity of the exchange count, so a fast
 // CTA's next parts never land on ones still being added. The streams a
-// CTA's units and entries read (acts, h_{t-1}, d_paths, eps) arrive by
-// cp.async into one stage, refilled for the next step once layer 0's
-// backward has read it; raw and the direct cotangents are read from device
-// memory where they are used. Each row's sums run in one order whatever
-// the rows a cluster or the warps, so the result does not depend on them
-// and repeats run to run; no atomics. Plain fp32 FMA (PERF.md, section 6).
+// CTA's units and entries read (acts and h_{t-1} in 16-byte pieces,
+// d_paths, eps) arrive by cp.async into one stage, refilled for the next
+// step once layer 0's backward has read it; raw and the direct cotangents
+// are read from device memory where they are used. Each row's sums run in
+// one order whatever the rows a cluster or the warps, so the result does
+// not depend on them and repeats run to run; no atomics. Plain fp32 FMA
+// (PERF.md, section 6).
 
 constexpr int kLoads = 4;  // device-memory loads a thread issues together in the output phase
 
 struct ClusterBwdPlan {
   int uc, nop, slots;
   int sr;           // floats of one row of the stage
-  int rw;           // rows a warp carries (1, 2 or 4)
+  int rw;           // rows a warp carries (1, 2 or 4: cluster_bwd_launch)
   size_t w_floats;  // floats of one CTA's packed slices
 };
 
@@ -554,12 +556,39 @@ inline int cluster_bwd_threads(int rows, int uc) {
   return n < 128 ? 128 : n > kClusterThreads ? kClusterThreads : n;
 }
 
+constexpr int kTasksPerWarp = 2;  // product tasks a warp takes, at most, where the tasks outnumber the warps
+
+// The rows a warp carries and the CTA's threads at `rows` rows a cluster:
+// the fewest rows a warp (1, 2 or 4) at which each task of a layer's
+// products (32 output columns of rw rows) has a warp of its own within
+// kClusterThreads, and the threads that takes (at least those of the
+// elementwise phases); where even 4 rows a warp leave more tasks than
+// kClusterThreads has warps, 4 (or the rows) and enough warps for
+// kTasksPerWarp tasks each, within kClusterThreads. A product task re-reads
+// the CTA's weight slice from shared memory for its rows; more rows a warp
+// read it fewer times, more warps shorten the phase (at highdim r5, 40
+// rows on clusters of 16: 320 threads 13.1 ms, 768 threads 11.3 ms).
+inline void cluster_bwd_launch(int D, int H, int L, int uc, int rows, int* rw, int* threads) {
+  const int widest = H + D > (L > 1 ? 2 * H : 0) ? H + D : 2 * H;  // a layer's most output columns
+  const int blocks = (widest + 31) / 32;
+  *threads = cluster_bwd_threads(rows, uc);
+  *rw = rows < 4 ? rows : 4;
+  for (int r = 1; r <= *rw; r *= 2)
+    if (32 * blocks * (rows / r) <= kClusterThreads) {
+      *rw = r;
+      if (32 * blocks * (rows / r) > *threads) *threads = 32 * blocks * (rows / r);
+      return;
+    }
+  const int tasks = blocks * (rows / *rw), warps = (tasks + kTasksPerWarp - 1) / kTasksPerWarp;
+  if (32 * warps > *threads) *threads = 32 * warps < kClusterThreads ? 32 * warps : kClusterThreads;
+}
+
 inline int cluster_bwd_max_rows(int D, int H, int L, int diag, int C, int optin) {
   ClusterBwdPlan c;
   make_cluster_bwd(D, H, L, diag, C, &c);
   int best = 0;
   for (int r = 1; r <= 256; r = r < 4 ? 2 * r : r + 4) {
-    if (cluster_bwd_smem(D, L, C, r, c) > (size_t)optin) break;
+    if (cluster_bwd_smem(D, L, C, r, c) + kExchangeSmem > (size_t)optin) break;
     best = r;
   }
   return best;
@@ -612,41 +641,61 @@ __global__ void __launch_bounds__(kClusterThreads, 1) bptt_cluster_kernel(BwdArg
   for (int i = tid; i < R * S; i += nt) dx_s[i] = 0.0f;
   __syncthreads();  // the tables
 
+  // a step's exchanges: the output phase's parts (of dL/dh_top for its
+  // units, of d_eps for its entries), then each layer's (of dh_{t-1} for its
+  // units, and of the cotangent sent down: for its units, or at layer 0 of
+  // x_t's for its entries), C parts of each in every owner
+  int n_own = 0;
+  for (int s = 0; s < S; ++s) n_own += erow_s[s] >= 0;
+  const uint32_t unit_parts = 4u * C * R * UC, entry_parts = 4u * C * R * n_own;
+  auto bytes = [&](int k) {
+    const int i = k % (L + 1);  // 0: the output phase; else layer L - i
+    return unit_parts + (i == 0 || i == L ? entry_parts : unit_parts);
+  };
+  __shared__ uint64_t exchange_s[2];
+  Exchanges ex{exchange_s, 0};
+  ex.init(bytes(0), bytes(1));
+
+  // the streams of step t for the cluster's rows into the stage: acts and
+  // h_{t-1} of its units in 16-byte pieces (UC is a multiple of 8; acts and
+  // h_all are 16-byte aligned), d_paths of its entries and eps a float each
+  const int pieces = UC / 4, row_pieces = 5 * L * pieces, singles = S + D;
   auto prefetch = [&](int t) {
-    for (int i = tid; i < R * SR; i += nt) {
-      const int r = i / SR, e = i % SR, b = b0 + r;
+    for (int i = tid; i < R * row_pieces; i += nt) {
+      const int r = i / row_pieces, seg = (i % row_pieces) / pieces, u = 4 * (i % pieces), b = b0 + r;
+      const size_t row = (size_t)t * a.B + b;
+      bool valid = b < a.B;
+      const float* src;
+      if (seg < 4 * L) {  // acts [l][g][u] of its units, from [L, T, B, 4H]
+        src = a.acts + ((size_t)(seg / 4) * TB + row) * 4 * H + (seg % 4) * H + c * UC + u;
+      } else {  // h_{t-1} [l][u] of its units
+        valid = valid && t > 0;
+        src = a.h_all + (row - a.B) * (size_t)(L * H) + (seg - 4 * L) * H + c * UC + u;
+      }
+      cp_async16(stage_s + r * SR + seg * UC + u, valid ? src : a.acts, valid);
+    }
+    for (int i = tid; i < R * singles; i += nt) {
+      const int r = i / singles, e = i % singles, b = b0 + r;
       const size_t row = (size_t)t * a.B + b;
       bool valid = b < a.B;
       const float* src = a.eps;
-      if (e < o_hp) {  // acts of its units: [l][g][u] from [L, T, B, 4H]
-        const int l = e / (4 * UC), g = (e / UC) % 4, u = e % UC;
-        src = a.acts + ((size_t)l * TB + row) * 4 * H + g * H + c * UC + u;
-      } else if (e < o_dp) {  // h_{t-1} of its units
-        const int l = (e - o_hp) / UC, u = (e - o_hp) % UC;
-        valid = valid && t > 0;
-        src = a.h_all + (row - a.B) * (size_t)(L * H) + l * H + c * UC + u;
-      } else if (e < o_eps) {  // d_paths of its entries
-        const int en = erow_s[e - o_dp];
+      if (e < S) {  // d_paths of its entries
+        const int en = erow_s[e];
         valid = valid && en >= 0;
         src = a.d_paths + row * D + (en < 0 ? 0 : en);
-      } else if (e < o_eps + D) {
-        src = a.eps + row * D + (e - o_eps);
       } else {
-        valid = false;
+        src = a.eps + row * D + (e - S);
       }
-      cp_async4(stage_s + i, valid ? src : a.eps, valid);
+      cp_async4(stage_s + r * SR + o_dp + e, valid ? src : a.eps, valid);
     }
     cp_async_commit();
   };
-  // store v into the owner's buffer (CTA `owner`)
-  auto put = [&](float* buf, int owner, size_t idx, float v) {
-    float* dst = C == 1 ? buf : cg::this_cluster().map_shared_rank(buf, owner);
-    dst[idx] = v;
-  };
+  // v into buf[idx] of the owner (CTA `owner`), in the current exchange
+  auto put = [&](float* buf, int owner, size_t idx, float v) { ex.send(buf, idx, owner, v); };
 
   prefetch(a.T - 1);
-  cluster_barrier(C);  // every CTA's tables and buffers before any peer writes
-  int phase = 0;       // barriers passed; parts use buffer phase & 1
+  cluster_barrier(C);  // every CTA's tables, buffers and mbarriers before any peer writes
+  const int& phase = ex.done;  // exchanges done; parts use buffer phase & 1
 
   for (int t = a.T - 1; t >= 0; --t) {
     cp_async_wait_all();
@@ -737,8 +786,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) bptt_cluster_kernel(BwdArg
         for (int r = 0; r < RW; ++r) put(dst_base, k / UC, ((size_t)c * R + q0 + r) * UC + k % UC, acc[r]);
       }
     }
-    cluster_barrier(C);
-    ++phase;
+    ex.finish(bytes(ex.done + 2));
     // the owners' d_eps: the C parts in CTA order
     for (int i = tid; i < R * S; i += nt) {
       const int r = i / S, s = i % S, e = erow_s[s], b = b0 + r;
@@ -817,8 +865,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) bptt_cluster_kernel(BwdArg
           }
         }
       }
-      cluster_barrier(C);
-      ++phase;
+      ex.finish(bytes(ex.done + 2));
       // the owners add the parts: dh_{t-1} = z d_h + d_gh W_hh^T; x_t's cotangent
       const float* pdh_in = pdh_s + (size_t)((phase - 1) & 1) * C * R * UC;
       for (int i = tid; i < R * UC; i += nt) {
@@ -842,6 +889,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) bptt_cluster_kernel(BwdArg
     const int r = i / S, s = i % S, e = erow_s[s], b = b0 + r;
     if (e >= 0 && b < a.B) a.d_x0[(size_t)b * D + e] = dx_s[i];
   }
+  cluster_barrier(C);  // no CTA leaves while a peer may still address it
 }
 
 template <int RW>
@@ -857,12 +905,12 @@ cudaError_t launch_cluster_bptt(const BwdArgs& a, const ClusterBwdPlan& p, int C
 inline cudaError_t bwd_cluster_slots(int D, int H, int L, int diag, int C, int max_rows, int n_sms, int* slots) {
   ClusterBwdPlan c;
   make_cluster_bwd(D, H, L, diag, C, &c);
-  const int rw = max_rows < 4 ? max_rows : 4;
+  int rw = 0, threads = 0;
+  cluster_bwd_launch(D, H, L, c.uc, max_rows, &rw, &threads);
   void (*kernel)(BwdArgs, ClusterBwdPlan, int, int) =
       rw == 1 ? bptt_cluster_kernel<1> : rw == 2 ? bptt_cluster_kernel<2> : bptt_cluster_kernel<4>;
   int held = 0;
-  cudaError_t err = max_active_clusters(kernel, C, cluster_bwd_threads(max_rows, c.uc),
-                                        cluster_bwd_smem(D, L, C, max_rows, c), &held);
+  cudaError_t err = max_active_clusters(kernel, C, threads, cluster_bwd_smem(D, L, C, max_rows, c), &held);
   if (err != cudaSuccess) return err;
   *slots = held < n_sms / C ? held : n_sms / C;
   return *slots > 0 ? cudaSuccess : cudaErrorInvalidValue;
@@ -882,7 +930,7 @@ struct BwdPlan {
 // K2's BPTT launch for a shape, by shape alone unless `path`, `cluster` or
 // `rows` ask for one (-1, 0, 0), by K1's rule (make_fwd_plan): the
 // one-block kernel with its matrices staged where they fit a block; else the
-// cluster kernel at the cluster (2 or 4) that takes the fewest waves; else
+// cluster kernel at the cluster (2, 4, 8 or 16) that takes the fewest waves; else
 // the one-block kernel streaming them. Mirrored by `plan_backward` in
 // ops/sde_sampler.py.
 inline cudaError_t make_bwd_plan(int D, int H, int L, int n_tril, int diag, int B, int path, int cluster, int rows,
@@ -923,10 +971,9 @@ inline cudaError_t make_bwd_plan(int D, int H, int L, int n_tril, int diag, int 
     }
     if (rows > max_rows || rows != round_rows(rows)) return cudaErrorInvalidValue;
     make_cluster_bwd(D, H, L, diag, cluster, &p->clu);
-    p->clu.rw = rows < 4 ? rows : 4;
+    cluster_bwd_launch(D, H, L, p->clu.uc, rows, &p->clu.rw, &p->threads);
     p->cluster = cluster;
     p->rows = rows;
-    p->threads = cluster_bwd_threads(rows, p->clu.uc);
     p->smem = cluster_bwd_smem(D, L, cluster, rows, p->clu);
     p->w_floats = p->clu.w_floats;
     return cudaSuccess;

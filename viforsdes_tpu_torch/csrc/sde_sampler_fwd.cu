@@ -13,9 +13,10 @@
 // Two kernels, chosen by shape in `make_fwd_plan`: `fwd_kernel`, one block
 // per 1, 2 or 4 rows, where the weights fit one block's shared memory (the
 // OU and Lorenz heads) or, streamed from device memory, where nothing else
-// fits (H=256); and `fwd_cluster_kernel` (below), a thread-block cluster of
-// 2 or 4 CTAs holding the weights between them, where they fit a cluster
-// (a 32-dimensional state, H=64 with three layers, H=96).
+// fits (H=256 at two layers); and `fwd_cluster_kernel` (below), a
+// thread-block cluster of 2 to 16 CTAs holding the weights between them,
+// where they fit a cluster (a 32-dimensional state, H=64 with three layers,
+// H=96; H=128 at clusters of 8 or 16).
 //
 // What bounds it on an H100: not the roofline. At B=32, T=2000 it does 4.9
 // GFLOP in 2000 dependent steps, so what counts is the latency of one step:
@@ -337,30 +338,32 @@ cudaError_t launch_fwd(const FwdArgs& a, const BlockFwdPlan& p, cudaStream_t str
 // the time loop for `rows` batch rows; each CTA holds its column slice of
 // every product in shared memory, so no step reads a weight from device
 // memory. Per step:
-//  - each layer: the gate sums of the CTA's units (`gate_sums`, K2's order),
-//    rows spread over its warps (rw rows a warp), the GRU update in
-//    registers; the new h goes into every CTA's h buffer (distributed shared
-//    memory), then one cluster barrier;
+//  - each layer: the input gate sums of the CTA's units (`gate_sums`, K2's
+//    order), rows spread over its warps (rw rows a warp, as few as the
+//    threads allow: `cluster_fwd_rw`), the GRU update in registers; the new
+//    h goes into every CTA's h buffer by st.async (one exchange, see
+//    sde_sampler.cuh); while it lands, the next layer's hidden gate sums,
+//    which read only h_{t-1};
 //  - the output projection: every warp of the CTA owns whole dot products,
 //    a lane an output column of the CTA's slice (its W_out^T columns held
 //    k-major), over rw rows; raw is written from there;
 //  - the Euler update of the CTA's state entries, L eps indexed by row
 //    (entry i sums its own i + 1 tril values times eps[0..i], the diagonal
-//    clamped; diag mode its one value); x_{t+1}[i] goes into every CTA,
-//    then one cluster barrier.
-// L + 1 cluster barriers and one block barrier a step. Each row's sums run
-// in the same order whatever the rows a cluster, the warps or the cluster
-// size, so the result depends on none of them (bitwise) and repeats run to
-// run; no atomics. Plain fp32 FMA: at D=32 the output phase and L eps took
-// 0.81 of the one-block kernel's step, the gate products under 0.2 of it
-// (PERF.md, section 6).
+//    clamped; diag mode its one value); x_{t+1}[i] goes into every CTA (one
+//    exchange); while it lands, the next step's layer-0 hidden sums.
+// L + 1 exchanges and one block barrier a step, and no cluster barrier
+// inside the loop. Each row's sums run in the same order whatever the rows
+// a cluster, the warps or the cluster size, so the result depends on none
+// of them (bitwise) and repeats run to run; no atomics. Plain fp32 FMA. At
+// Lorenz r3's head (128 x 3, clusters of 8) the gate products take about
+// half of a step, bound by shared-memory loads (PERF.md, section 6).
 
 struct ClusterFwdPlan {
   int uc;           // hidden units a CTA owns (H / C)
   int nop;          // output columns a CTA owns, padded to 32
   int slots;        // state entries a CTA owns, at most
   int sr;           // floats of one row of a stage: gates_const (own columns) | eps, padded to 4
-  int rw;           // rows a warp carries (1, 2 or 4)
+  int rw;           // rows a warp carries (1, 2 or 4: cluster_fwd_rw)
   size_t w_floats;  // floats of one CTA's packed weights
 };
 
@@ -382,7 +385,18 @@ inline void make_cluster_fwd(int D, int H, int L, int diag, int C, ClusterFwdPla
   c->w_floats = cluster_w_floats(D, H, L, c->uc, c->nop);
 }
 
-// The most rows a cluster of C can carry: shared memory and kClusterThreads.
+// Rows a warp carries at `rows` rows a cluster: the fewest (1, 2 or 4) whose
+// warps the CTA's threads hold. One warp's share of a step is a chain of
+// dependent shared-memory loads and sums, so a step takes about as long as
+// its warps' longest share: fewer rows a warp, more warps, a shorter step.
+inline int cluster_fwd_rw(int uc, int rows) {
+  for (int rw = 1; rw < 4 && rw < rows; rw *= 2)
+    if (32 * (uc / kUnitsPerWarp) * (rows / rw) <= kClusterThreads) return rw;
+  return rows < 4 ? rows : 4;
+}
+
+// The most rows a cluster of C can carry: shared memory and kClusterThreads
+// (at 4 rows a warp).
 inline int cluster_fwd_max_rows(int D, int H, int L, int diag, int C, int optin) {
   ClusterFwdPlan c;
   make_cluster_fwd(D, H, L, diag, C, &c);
@@ -390,7 +404,8 @@ inline int cluster_fwd_max_rows(int D, int H, int L, int diag, int C, int optin)
   int best = 0;
   for (int r = 1; r <= 256; r = r < 4 ? 2 * r : r + 4) {
     const int rw = r < 4 ? r : 4;
-    if (32 * groups * (r / rw) > kClusterThreads || cluster_fwd_smem(D, H, L, r, c) > (size_t)optin) break;
+    if (32 * groups * (r / rw) > kClusterThreads || cluster_fwd_smem(D, H, L, r, c) + kExchangeSmem > (size_t)optin)
+      break;
     best = r;
   }
   return best;
@@ -457,14 +472,18 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fwd_cluster_kernel(FwdArgs
     const size_t off = l == 0 ? 0 : (size_t)UC * ((D + H + 2) + (size_t)(l - 1) * (2 * H + 2));
     return w4[off + (size_t)i * UC + u];
   };
-  auto hidden_gates0 = [&](const float* h, float (&gh)[RW][3]) {
+  // layer l's hidden gate sums h_l . W_hh + b_hh for this lane's unit (h: the
+  // step's h_{t-1}, every layer; K2's gate pass sums each product on its own
+  // in this order too)
+  auto hidden_gates = [&](int l, const float* h, float (&gh)[RW][3]) {
     float sum[1][RW][3];
-    const float* const v[1] = {h + r0 * LH};
+    const int n_in = l == 0 ? D : H;
+    const float* const v[1] = {h + r0 * LH + l * H};
     gate_sums<1, RW, 3>(sum, v, LH, H, [&](int i, float (&w)[1][3]) {
-      const float4 q = weights(0, D + i);
+      const float4 q = weights(l, n_in + i);
       w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z;
     });
-    const float4 bh = weights(0, D + H + 1);
+    const float4 bh = weights(l, n_in + H + 1);
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       gh[r][0] = bh.x + sum[0][r][0];
@@ -473,10 +492,17 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fwd_cluster_kernel(FwdArgs
     }
   };
 
+  // a step's exchanges: each layer's h(t) (R rows of H units land in every
+  // CTA), then x_{t+1} (R rows of D entries)
+  __shared__ uint64_t exchange_s[2];
+  Exchanges ex{exchange_s, 0};
+  auto bytes = [&](int k) { return 4u * R * (k % (L + 1) < L ? H : D); };
+  ex.init(bytes(0), bytes(1));
+
   prefetch(0);
-  cluster_barrier(C);  // weights, tables, h_{-1} = 0 and x_0 in every CTA before any peer writes
-  float gh0[RW][3];
-  hidden_gates0(h_s, gh0);
+  cluster_barrier(C);  // weights, tables, h_{-1} = 0, x_0 and the mbarriers in every CTA before any peer writes
+  float gh[RW][3];  // the hidden gate sums of the coming layer
+  hidden_gates(0, h_s, gh);
 
   for (int t = 0; t < a.T; ++t) {
     const float* h_old = h_s + (t & 1) * R * LH;
@@ -487,56 +513,40 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fwd_cluster_kernel(FwdArgs
     if (t + 1 < a.T) prefetch(t + 1);  // stage (t + 1) & 1 was last read in step t - 1
 
     for (int l = 0; l < L; ++l) {
-      float gi[RW][3], gh[RW][3];
-      if (l == 0) {
-        float sum[1][RW][3];
-        const float* const v[1] = {x_s + r0 * D};
-        gate_sums<1, RW, 3>(sum, v, D, D, [&](int i, float (&w)[1][3]) {
-          const float4 q = weights(0, i);
-          w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z;
-        });
+      float gi[RW][3];
+      float sum[1][RW][3];
+      const float* const v[1] = {l == 0 ? x_s + r0 * D : h_new + r0 * LH + (l - 1) * H};
+      const int ldv = l == 0 ? D : LH, n_in = l == 0 ? D : H;
+      gate_sums<1, RW, 3>(sum, v, ldv, n_in, [&](int i, float (&w)[1][3]) {
+        const float4 q = weights(l, i);
+        w[0][0] = q.x; w[0][1] = q.y; w[0][2] = q.z;
+      });
+      const float4 bi = l == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : weights(l, 2 * H);
+      const float b_in[3] = {bi.x, bi.y, bi.z};
 #pragma unroll
-        for (int r = 0; r < RW; ++r)
+      for (int r = 0; r < RW; ++r)
 #pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            gi[r][g] = cur[(r0 + r) * SR + g * UC + u] + sum[0][r][g];
-            gh[r][g] = gh0[r][g];
-          }
-      } else {
-        float sum[2][RW][3];
-        const float* const v[2] = {h_new + r0 * LH + (l - 1) * H, h_old + r0 * LH + l * H};
-        gate_sums<2, RW, 3>(sum, v, LH, H, [&](int i, float (&w)[2][3]) {
-          const float4 qi = weights(l, i), qh = weights(l, H + i);
-          w[0][0] = qi.x; w[0][1] = qi.y; w[0][2] = qi.z;
-          w[1][0] = qh.x; w[1][1] = qh.y; w[1][2] = qh.z;
-        });
-        const float4 bi = weights(l, 2 * H), bh = weights(l, 2 * H + 1);
-#pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          gi[r][0] = bi.x + sum[0][r][0];
-          gi[r][1] = bi.y + sum[0][r][1];
-          gi[r][2] = bi.z + sum[0][r][2];
-          gh[r][0] = bh.x + sum[1][r][0];
-          gh[r][1] = bh.y + sum[1][r][1];
-          gh[r][2] = bh.z + sum[1][r][2];
-        }
-      }
+        for (int g = 0; g < 3; ++g)
+          gi[r][g] = (l == 0 ? cur[(r0 + r) * SR + g * UC + u] : b_in[g]) + sum[0][r][g];
+      float hn[RW];
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         float rg, zg, ng;
         gru_gates(gi[r][0], gi[r][1], gi[r][2], gh[r][0], gh[r][1], gh[r][2], rg, zg, ng);
         const int idx = (r0 + r) * LH + l * H + k;
-        const float hn = fmaf(zg, h_old[idx], (1.0f - zg) * ng);
-        // the four parts of a unit hold the same bits: part q stores into CTA q
-        if (part < C) {
-          float* dst = C == 1 ? h_new : cg::this_cluster().map_shared_rank(h_new, part);
-          dst[idx] = hn;
-        }
-        const int b = b0 + r0 + r;
-        if (part == kGateParts - 1 && a.h_all != nullptr && b < a.B)
-          a.h_all[((size_t)t * a.B + b) * LH + l * H + k] = hn;
+        hn[r] = fmaf(zg, h_old[idx], (1.0f - zg) * ng);
+        // layer l's h(t) into every CTA: the four parts of a unit hold the
+        // same bits, part q sends to CTAs q, q + kGateParts, ..
+        for (int q = part; q < C; q += kGateParts) ex.send(h_new, idx, q, hn[r]);
       }
-      cluster_barrier(C);  // layer l's h(t) in every CTA
+      if (part == kGateParts - 1 && a.h_all != nullptr)
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+          if (b0 + r0 + r < a.B) a.h_all[((size_t)t * a.B + b0 + r0 + r) * LH + l * H + k] = hn[r];
+      // the next layer's hidden product, which reads only h_{t-1}, while
+      // layer l's h(t) lands
+      if (l + 1 < L) hidden_gates(l + 1, h_old, gh);
+      ex.finish(bytes(ex.done + 2));
     }
 
     // the output projection: a lane an output column, whole dot products over h_top(t)
@@ -592,15 +602,14 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fwd_cluster_kernel(FwdArgs
         l_eps = fmaf(fmaxf(o[1 + e], a.diag_min), eps[e], l_eps);
       }
       const float x_next = x_s[r * D + e] + o[0] * a.dt + l_eps * a.sqrt_dt;
-      for (int q = 0; q < C; ++q) {
-        float* dst = C == 1 ? x_s : cg::this_cluster().map_shared_rank(x_s, q);
-        dst[r * D + e] = x_next;
-      }
+      for (int q = 0; q < C; ++q) ex.send(x_s, r * D + e, q, x_next);  // x_{t+1} into every CTA
       if (b < a.B) a.paths[((size_t)t * a.B + b) * D + e] = x_next;
     }
-    cluster_barrier(C);  // x_{t+1} in every CTA
-    if (t + 1 < a.T) hidden_gates0(h_new, gh0);  // the next step's layer-0 hidden sums
+    // the next step's layer-0 hidden sums while x_{t+1} lands
+    if (t + 1 < a.T) hidden_gates(0, h_new, gh);
+    ex.finish(bytes(ex.done + 2));
   }
+  cluster_barrier(C);  // no CTA leaves while a peer may still address it
 }
 
 template <int RW>
@@ -617,7 +626,7 @@ cudaError_t launch_cluster_fwd(const FwdArgs& a, const ClusterFwdPlan& p, int C,
 inline cudaError_t fwd_cluster_slots(int D, int H, int L, int diag, int C, int max_rows, int n_sms, int* slots) {
   ClusterFwdPlan c;
   make_cluster_fwd(D, H, L, diag, C, &c);
-  const int rw = max_rows < 4 ? max_rows : 4;
+  const int rw = cluster_fwd_rw(c.uc, max_rows);
   const int threads = 32 * (c.uc / kUnitsPerWarp) * (max_rows / rw);
   void (*kernel)(FwdArgs, ClusterFwdPlan, int, int) =
       rw == 1 ? fwd_cluster_kernel<1> : rw == 2 ? fwd_cluster_kernel<2> : fwd_cluster_kernel<4>;
@@ -647,8 +656,8 @@ struct FwdPlan {
 // `rows` ask for one (-1, 0, 0: by shape):
 //  - the one-block kernel with its weights staged in shared memory where
 //    they fit one block (at the rows `cluster_rows` gives, at most 4);
-//  - else the cluster kernel at the cluster (2 or 4) whose slices fit in
-//    the fewest waves of clusters (the smaller on a tie), at the rows
+//  - else the cluster kernel at the cluster (2, 4, 8 or 16) whose slices
+//    fit in the fewest waves of clusters (the smaller on a tie), at the rows
 //    `cluster_rows` gives a cluster with the clusters the card runs at once
 //    (`fwd_cluster_slots`);
 //  - else the one-block kernel streaming its weights from device memory.
@@ -691,7 +700,7 @@ inline cudaError_t make_fwd_plan(int D, int H, int L, int n_tril, int diag, int 
     }
     if (rows > max_rows || rows != round_rows(rows)) return cudaErrorInvalidValue;
     make_cluster_fwd(D, H, L, diag, cluster, &p->clu);
-    p->clu.rw = rows < 4 ? rows : 4;
+    p->clu.rw = cluster_fwd_rw(p->clu.uc, rows);
     p->cluster = cluster;
     p->rows = rows;
     p->threads = 32 * (p->clu.uc / kUnitsPerWarp) * (rows / p->clu.rw);

@@ -17,10 +17,11 @@ sampler rolls the head's L-layer GRU and the Euler recurrence
 Each kernel runs one of three paths, picked by shape before the launch
 (``make_fwd_plan`` / ``make_bwd_plan`` in the sources, mirrored here by
 ``plan_forward`` / ``plan_backward``): one block per 1, 2 or 4 rows with
-the weights staged in its shared memory; a thread-block cluster of 2 or 4
-CTAs that holds the weights between them, each CTA a column slice of every
-product (``cluster_layout``), where they fit no block; or one block per
-rows streaming them from device memory, where they fit no cluster.
+the weights staged in its shared memory; a thread-block cluster of 2, 4, 8
+or 16 CTAs that holds the weights between them, each CTA a column slice of
+every product (``cluster_layout``), where they fit no block; or one block
+per rows streaming them from device memory, where they fit no cluster of
+up to 16.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 (``_forward_plain`` / ``_backward_plain``) only for CPU tensors; any other
@@ -379,9 +380,12 @@ class ForwardPlan(NamedTuple):
 # The widest head K1 takes: 32 warps of 8 hidden units fill a block's 1024
 # threads (``kMaxHidden`` in csrc/sde_sampler_fwd.cu).
 K1_MAX_HIDDEN = 256
-MAX_CLUSTER = 4      # ``kMaxCluster`` in csrc/sde_sampler.cuh
+MAX_CLUSTER = 16     # ``kMaxCluster`` in csrc/sde_sampler.cuh (above 8: a non-portable size)
+CLUSTER_SIZES = (2, 4, 8, 16)  # the clusters both planners try
 UNITS_PER_WARP = 8   # hidden units a warp owns (``kUnitsPerWarp``)
 CLUSTER_THREADS = 768  # threads of a cluster kernel's CTA, at most (``kClusterThreads``)
+EXCHANGE_SMEM = 16     # a cluster kernel's static shared memory: two mbarriers (``kExchangeSmem``)
+BPTT_TASKS_PER_WARP = 2  # the cluster BPTT's product tasks a warp, at most, where they outnumber the warps
 
 # Batch rows per block of the one-block kernels (K1 and K2's BPTT).
 ROWS_PER_BLOCK = (1, 2, 4)
@@ -519,14 +523,27 @@ def _cluster_forward_smem(spec: SamplerSpec, cluster: int, rows: int) -> tuple[i
     return smem, floats, uc, nop, slots
 
 
+def _cluster_forward_rw(uc: int, rows: int) -> int:
+    """Rows a warp carries at ``rows`` rows a cluster: the fewest (1, 2 or
+    4) whose warps fit ``CLUSTER_THREADS`` (``cluster_fwd_rw``)."""
+    rw = 1
+    while rw < min(rows, 4):
+        if 32 * (uc // UNITS_PER_WARP) * (rows // rw) <= CLUSTER_THREADS:
+            return rw
+        rw *= 2
+    return min(rows, 4)
+
+
 def _cluster_forward_max_rows(spec: SamplerSpec, cluster: int, optin: int) -> int:
     """The most rows a cluster carries: its shared memory within ``optin``
-    and at most ``CLUSTER_THREADS`` threads (``cluster_fwd_max_rows``)."""
+    and at most ``CLUSTER_THREADS`` threads at 4 rows a warp
+    (``cluster_fwd_max_rows``)."""
     best, r = 0, 1
     groups = spec.hidden_dim // cluster // UNITS_PER_WARP
     while r <= 256:
         rw = min(r, 4)
-        if 32 * groups * (r // rw) > CLUSTER_THREADS or _cluster_forward_smem(spec, cluster, r)[0] > optin:
+        if (32 * groups * (r // rw) > CLUSTER_THREADS
+                or _cluster_forward_smem(spec, cluster, r)[0] + EXCHANGE_SMEM > optin):
             break
         best = r
         r = 2 * r if r < 4 else r + 4
@@ -538,7 +555,7 @@ def _cluster_ok(h: int, cluster: int) -> bool:
 
 
 def _per_wave(cluster: int, n_sms: int, slots: dict[int, int] | None) -> int:
-    held = n_sms // cluster if slots is None else slots[cluster]
+    held = (slots or {}).get(cluster, n_sms // cluster)
     return min(n_sms // cluster, held)
 
 
@@ -550,9 +567,10 @@ def plan_forward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
     their most rows, ``cluster_slots``; ``n_sms // cluster`` where not
     given): the one-block kernel with its weights staged where they fit a
     block at the rows ``cluster_rows`` gives (at most 4); else the cluster
-    kernel at the cluster, 2 or 4, whose slices fit in the fewest waves of
-    clusters (the smaller on a tie), at the rows ``cluster_rows`` gives a
-    cluster; else the one-block kernel streaming its weights."""
+    kernel at the cluster of ``CLUSTER_SIZES`` whose slices fit in the
+    fewest waves of clusters (the smaller on a tie), at the rows
+    ``cluster_rows`` gives a cluster; else the one-block kernel streaming
+    its weights."""
     h = spec.hidden_dim
     if h > K1_MAX_HIDDEN:
         raise ValueError(f"K1 takes hidden_dim <= {K1_MAX_HIDDEN}, got {h}")
@@ -561,7 +579,7 @@ def plan_forward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
     units = -(-h // 8) * 8
     if staged <= optin:
         return ForwardPlan(PATH_STAGED, 1, block_rows, threads, staged, floats, units, ld_out, 0, 0, 0, 0)
-    fits = {c: _cluster_forward_max_rows(spec, c, optin) for c in (2, 4) if _cluster_ok(h, c)}
+    fits = {c: _cluster_forward_max_rows(spec, c, optin) for c in CLUSTER_SIZES if _cluster_ok(h, c)}
     fits = {c: m for c, m in fits.items() if m > 0}
     if not fits:
         if streaming > optin:
@@ -571,7 +589,7 @@ def plan_forward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
     cluster = min(fits, key=lambda c: (cluster_waves(batch, _per_wave(c, n_sms, slots), fits[c]), c))
     rows = cluster_rows(batch, _per_wave(cluster, n_sms, slots), fits[cluster])
     smem, cfloats, uc, nop, n_slots = _cluster_forward_smem(spec, cluster, rows)
-    rw = min(rows, 4)
+    rw = _cluster_forward_rw(uc, rows)
     return ForwardPlan(PATH_CLUSTER, cluster, rows, 32 * (uc // UNITS_PER_WARP) * (rows // rw), smem,
                        cfloats, units, ld_out, uc, nop, n_slots, rw)
 
@@ -815,7 +833,7 @@ def _cluster_backward_smem(spec: SamplerSpec, cluster: int, rows: int) -> tuple[
 def _cluster_backward_max_rows(spec: SamplerSpec, cluster: int, optin: int) -> int:
     """The most rows a cluster carries in K2 (``cluster_bwd_max_rows``)."""
     best, r = 0, 1
-    while r <= 256 and _cluster_backward_smem(spec, cluster, r)[0] <= optin:
+    while r <= 256 and _cluster_backward_smem(spec, cluster, r)[0] + EXCHANGE_SMEM <= optin:
         best = r
         r = 2 * r if r < 4 else r + 4
     return best
@@ -825,14 +843,14 @@ def plan_backward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
                   slots: dict[int, int] | None = None) -> BackwardPlan:
     """K2's BPTT plan, computed here as ``make_bwd_plan`` computes it on the
     card, by K1's rule (``plan_forward``): staged in one block where the
-    matrices fit; else clusters of 2 or 4 in the fewest waves; else
-    streaming."""
+    matrices fit; else clusters of ``CLUSTER_SIZES`` in the fewest waves;
+    else streaming."""
     h = spec.hidden_dim
     block_rows = cluster_rows(batch, n_sms, ROWS_PER_BLOCK[-1])
     threads, staged, streaming, floats, ld0, ld1 = _block_backward_smem(spec, block_rows)
     if staged <= optin:
         return BackwardPlan(PATH_STAGED, 1, block_rows, threads, staged, floats, ld0, ld1, 0, 0, 0, 0)
-    fits = {c: _cluster_backward_max_rows(spec, c, optin) for c in (2, 4) if _cluster_ok(h, c)}
+    fits = {c: _cluster_backward_max_rows(spec, c, optin) for c in CLUSTER_SIZES if _cluster_ok(h, c)}
     fits = {c: m for c, m in fits.items() if m > 0}
     if not fits:
         if streaming > optin:
@@ -841,38 +859,58 @@ def plan_backward(spec: SamplerSpec, batch: int, n_sms: int, optin: int,
     cluster = min(fits, key=lambda c: (cluster_waves(batch, _per_wave(c, n_sms, slots), fits[c]), c))
     rows = cluster_rows(batch, _per_wave(cluster, n_sms, slots), fits[cluster])
     smem, cfloats, uc, nop, n_slots = _cluster_backward_smem(spec, cluster, rows)
-    threads = _cluster_backward_threads(rows, uc)
-    return BackwardPlan(PATH_CLUSTER, cluster, rows, threads, smem, cfloats, ld0, ld1, uc, nop, n_slots,
-                        min(rows, 4))
+    rw, threads = _cluster_backward_launch(spec, uc, rows)
+    return BackwardPlan(PATH_CLUSTER, cluster, rows, threads, smem, cfloats, ld0, ld1, uc, nop, n_slots, rw)
 
 
 def _cluster_backward_threads(rows: int, uc: int) -> int:
-    """``cluster_bwd_threads``."""
+    """``cluster_bwd_threads``: the elementwise phases' threads."""
     return min(CLUSTER_THREADS, max(128, -(-(rows * uc) // 32) * 32))
 
 
+def _cluster_backward_launch(spec: SamplerSpec, uc: int, rows: int) -> tuple[int, int]:
+    """``(rows a warp, threads)`` of the cluster BPTT (``cluster_bwd_launch``):
+    the fewest rows a warp at which each task of a layer's products (32
+    output columns of those rows) gets a warp within ``CLUSTER_THREADS``,
+    and the threads that takes, at least the elementwise phases'; else 4
+    rows a warp (or the rows) and warps enough for ``BPTT_TASKS_PER_WARP``
+    tasks each, within ``CLUSTER_THREADS``."""
+    h, d = spec.hidden_dim, spec.state_dim
+    widest = max(h + d, 2 * h if spec.num_layers > 1 else 0)
+    blocks = -(-widest // 32)
+    threads = _cluster_backward_threads(rows, uc)
+    rw = 1
+    while rw <= min(rows, 4):
+        if 32 * blocks * (rows // rw) <= CLUSTER_THREADS:
+            return rw, max(threads, 32 * blocks * (rows // rw))
+        rw *= 2
+    warps = -(-blocks * (rows // min(rows, 4)) // BPTT_TASKS_PER_WARP)
+    return min(rows, 4), max(threads, min(CLUSTER_THREADS, 32 * warps))
+
+
 def cluster_slots(spec: SamplerSpec, device_index: int) -> dict[str, dict[int, int]]:
-    """The clusters of 2 and 4 CTAs of each cluster kernel that the card runs
-    at once at its most rows (``fwd_cluster_slots`` / ``bwd_cluster_slots``,
+    """The clusters of each of ``CLUSTER_SIZES`` CTAs of each cluster kernel
+    that the card runs at once at its most rows (``fwd_cluster_slots`` / ``bwd_cluster_slots``,
     from ``cudaOccupancyMaxActiveClusters``): the ``slots`` of
     ``plan_forward`` (``"fwd"``) and ``plan_backward`` (``"bwd"``)."""
     props = torch.cuda.get_device_properties(device_index)
     n_sms, optin = props.multi_processor_count, props.shared_memory_per_block_optin
     lib = SDE_SAMPLER.get()
     out: dict[str, dict[int, int]] = {"fwd": {}, "bwd": {}}
-    for cluster in (2, 4):
+    for cluster in CLUSTER_SIZES:
         if not _cluster_ok(spec.hidden_dim, cluster):
             continue
+        uc = spec.hidden_dim // cluster
         rows = _cluster_forward_max_rows(spec, cluster, optin)
         if rows:
-            uc = spec.hidden_dim // cluster
-            threads = 32 * (uc // UNITS_PER_WARP) * (rows // min(rows, 4))
-            out["fwd"][cluster] = _held(lib.sde_sampler_fwd_max_clusters, cluster, min(rows, 4), threads,
+            rw = _cluster_forward_rw(uc, rows)
+            threads = 32 * (uc // UNITS_PER_WARP) * (rows // rw)
+            out["fwd"][cluster] = _held(lib.sde_sampler_fwd_max_clusters, cluster, rw, threads,
                                         _cluster_forward_smem(spec, cluster, rows)[0], device_index)
         rows = _cluster_backward_max_rows(spec, cluster, optin)
         if rows:
-            threads = _cluster_backward_threads(rows, spec.hidden_dim // cluster)
-            out["bwd"][cluster] = _held(lib.sde_sampler_bwd_max_clusters, cluster, min(rows, 4), threads,
+            rw, threads = _cluster_backward_launch(spec, uc, rows)
+            out["bwd"][cluster] = _held(lib.sde_sampler_bwd_max_clusters, cluster, rw, threads,
                                         _cluster_backward_smem(spec, cluster, rows)[0], device_index)
     return {k: {c: min(n, n_sms // c) for c, n in v.items()} for k, v in out.items()}
 
@@ -1021,6 +1059,8 @@ def _backward_cuda(
     if acts is None:
         acts = empty(n_layers, n_steps, batch, 4 * h)  # r, z, n, n_hh of every step and layer
     _check("acts", acts, (n_layers, n_steps, batch, 4 * h), dev)
+    if on_cluster and (acts.data_ptr() % 16 or fwd.h_all.data_ptr() % 16):
+        raise ValueError("the cluster BPTT reads acts and h_all in 16-byte pieces: both must be 16-byte aligned")
     d_gc = empty(n_steps, batch, g3)
     d_eps = empty(n_steps, batch, d)
     d_x0 = empty(batch, d)
