@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py spans    # the card, the build and [spans] alone
 
 Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 
@@ -149,7 +150,18 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    importance groups a microbatch (2 on one rank, 1 on the other), each
    against the run without a mesh: ELBO within ``ELBO_RTOL``, params within
    the backward bars, the ranks bitwise equal, and ``steps_per_call=5``
-   refused on that mesh (semantics, not speed).
+   refused on that mesh (semantics, not speed);
+18. ``[spans]``: the device spans (``utils/profiling.py``) at each
+   benchmark cell's shapes (``portbench/``: Lorenz-63 r3 bf16 and fp32,
+   highdim r5 bf16; the benchmark's weights from one seed), a trainer with
+   spans on and one with them off: after the first chunk (eager, then
+   captured) and one replay the state of both bitwise equal; the graph's
+   nodes with spans on less those with them off equal to its markers; one
+   replay traced, each span begun and ended once a step and microbatch
+   (attention once a block), and ``device_span_ms`` from the ring within
+   ``SPAN_RING_BAR`` of the trace's marker times per family; the step's
+   split by span (kernel ms and launches, ``portbench/harness/spans.py``);
+   ms a step with spans on and off in turns (on, off, off, on).
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -2693,6 +2705,190 @@ def phase_dp(torch, vt, smi: str) -> dict:
     return {"mesh": mesh, "gloo": gloo}
 
 
+SPAN_CELLS = ("lorenz_r3.bf16", "highdim_r5.bf16", "lorenz_r3.fp32")
+SPAN_SEED = 4610000001
+SPAN_RING_BAR = 0.02  # the ring's span times against the trace's, per family
+SPAN_ROUNDS = 6       # rounds of (on, off, off, on) windows of one chunk each
+
+
+def span_arm(torch, cell, spans_on: bool):
+    """The cell's trainer (the benchmark's harness) from ``SPAN_SEED``'s
+    weights, through its first chunk (eager, then captured with spans on or
+    off) and one replay."""
+    from portbench.harness import problem
+    from portbench.harness.program import Program
+    from viforsdes_tpu_torch.utils import profiling
+
+    cfg, traffic = cell.config, cell.traffic
+    sde = problem.make_sde(cfg)
+    times, values = problem.observations(cfg)
+    shapes = problem.shapes(cfg, values.shape[-1], sde)
+    prog = Program(cfg, traffic, sde, times, values, SPAN_SEED, "cuda")
+    prog.load(problem.make_weights(cfg, shapes, SPAN_SEED, torch.device("cuda")))
+    k = int(traffic["steps_per_call"])
+    profiling.set_device_spans(spans_on)
+    try:
+        prog.train_to(k)
+    finally:
+        profiling.set_device_spans(True)
+    prog.train_to(2 * k)
+    torch.cuda.synchronize()
+    return prog
+
+
+def span_walls(trace) -> dict:
+    """Per span, the device ms between its markers' starts in ``trace``, a
+    step; the ring's quantity, from the profiler's clock."""
+    from portbench.harness.spans import MARKER, SPANS
+
+    walls: dict = {}
+    opened = []
+    for op in sorted(trace.device, key=lambda op: op.start):
+        m = MARKER.search(op.name)
+        if m is None:
+            continue
+        span = SPANS[int(m.group(2))]
+        if m.group(1) == "begin":
+            opened.append((span, op.start))
+        else:
+            begun, t0 = opened.pop()
+            if begun != span:
+                raise AssertionError(f"[spans] {span!r} ends inside {begun!r} in the trace")
+            walls[span] = walls.get(span, 0.0) + (op.start - t0) * 1e-3 / trace.steps
+    if opened:
+        raise AssertionError(f"[spans] spans left open in the trace: {opened[:4]}")
+    return walls
+
+
+def span_families(walls: dict) -> dict:
+    """The benchmark's families from inclusive span times: attention apart
+    from the encoder that holds it."""
+    from portbench.harness.spans import FAMILIES
+
+    fam = {name: sum(walls.get(s, 0.0) for s in spans) for name, spans in FAMILIES.items()}
+    fam["encoder"] -= fam["attention"]
+    return fam
+
+
+def span_cell(torch, name: str) -> dict:
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import record_function
+
+    from portbench.harness import spans as span_reader
+    from portbench.harness import spec
+    from portbench.harness.trace import WINDOW, read_chrome_trace
+    from viforsdes_tpu_torch.utils import profiling
+
+    cell = spec.load_cell(name)
+    traffic = cell.traffic
+    k = int(traffic["steps_per_call"])
+    accum = int(traffic["grad_accum_steps"])
+    depth = int(cell.config["encoder"]["depth"])
+    arms = {"on": span_arm(torch, cell, True), "off": span_arm(torch, cell, False)}
+    chunks = {arm: prog.trainer._train_chunks[k] for arm, prog in arms.items()}
+
+    # the state after the eager chunk and one replay: bitwise the same
+    sa, sb = trainer_state(arms["on"].trainer), trainer_state(arms["off"].trainer)
+    for key in ("count", "notfinite_count", "total_notfinite"):
+        sa[key], sb[key] = arms["on"].trainer.opt_state[key], arms["off"].trainer.opt_state[key]
+    unequal = [key for key in sa if not torch.equal(sa[key], sb[key])]
+    if unequal:
+        raise AssertionError(f"[spans] {name}: state after a replay differs with spans on and off: {unequal}")
+    markers = len(chunks["on"].spans.boundaries)
+    extra = chunks["on"].nodes - chunks["off"].nodes
+    if chunks["off"].spans is not None or extra != markers:
+        raise AssertionError(f"[spans] {name}: the graph with spans has {extra} nodes more than without, "
+                             f"{markers} markers")
+
+    # one replay traced: markers, the ring against the trace, the split
+    expected = {s: accum for s in span_reader.SPANS}
+    expected.update({"step": 1, "optimizer": 1, "attention": depth * accum, "attention.bwd": depth * accum})
+    prog = arms["on"]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        out = Path(tempfile.mkdtemp(prefix="spans_trace_"))
+        try:
+            torch.cuda.synchronize()
+            with profiling.trace(str(out)):
+                with record_function(WINDOW):
+                    prog.train_to(prog.completed + k)
+                    torch.cuda.synchronize()
+            trace = read_chrome_trace(next(out.glob("*.json")), k)
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        counts = {}
+        for op in trace.device:
+            m = span_reader.MARKER.search(op.name)
+            if m is not None:
+                key = (span_reader.SPANS[int(m.group(2))], m.group(1))
+                counts[key] = counts.get(key, 0) + 1
+        want = {(s, kind): n * k for s, n in expected.items() for kind in ("begin", "end")}
+        if counts == want:
+            break
+        log(f"[spans] {name}: profile {attempt} counted markers "
+            f"{json.dumps({f'{s} {kd}': n for (s, kd), n in counts.items()})}"
+            + ("; profiling another replay" if attempt < PROFILE_TRIES else ""))
+    if counts != want:
+        raise AssertionError(f"[spans] {name}: markers of one replay {counts}, expected {want}")
+    ring = profiling.device_span_ms(prog.trainer)
+    walls = span_walls(trace)
+    ring_fam, trace_fam = span_families(ring.ms), span_families(walls)
+    off = {f: abs(ring_fam[f] - trace_fam[f]) / trace_fam[f] for f in ring_fam}
+    split = span_reader.split(trace)
+    kernel_fam = {f: split.family_s(f) * 1e3 / k for f in span_reader.FAMILIES}
+    busy = split.total_s() * 1e3 / k
+    unspanned = busy - sum(kernel_fam.values())
+    marker_ms = sum(op.dur for op in trace.device if span_reader.MARKER.search(op.name)) * 1e-3 / k
+    launches = {f: sum(split.ops[s] for s in spans) / k for f, spans in span_reader.FAMILIES.items()}
+    log(f"[spans] {name}: {markers // k} markers a step ({marker_ms:.4f} ms of marker kernels a step), "
+        f"{extra} graph nodes more than without; state after a replay bitwise equal on and off")
+    log(f"[spans] {name} ring ms/step (with children): " + json.dumps({s: round(v, 4) for s, v in ring.ms.items()}))
+    log(f"[spans] {name} ring graph nodes/step: " + json.dumps({s: round(v, 1) for s, v in ring.nodes.items()}))
+    log(f"[spans] {name} families, ring against trace (marker to marker, ms/step): "
+        + json.dumps({f: [round(ring_fam[f], 4), round(trace_fam[f], 4), round(off[f], 5)] for f in ring_fam}))
+    log(f"[spans] {name} split of {busy:.3f} kernel ms/step: "
+        + json.dumps({f: round(v, 4) for f, v in kernel_fam.items()})
+        + f", unspanned {unspanned:.4f} ({100 * unspanned / busy:.2f}%); launches/step "
+        + json.dumps({f: round(v, 1) for f, v in launches.items()})
+        + f", in all {split.total_ops() / k:.1f} (theta {split.ops['theta'] / k:.1f}, grads.tail "
+        f"{split.ops['grads.tail'] / k:.1f}, step {split.ops['step'] / k:.1f}, outside {split.ops[None] / k:.1f})")
+    bad = {f: v for f, v in off.items() if v > SPAN_RING_BAR}
+    if bad:
+        raise AssertionError(f"[spans] {name}: ring and trace differ by more than {SPAN_RING_BAR}: {bad}")
+
+    # ms a step in turns: on, off, off, on; one chunk a window
+    samples = {"on": [], "off": []}
+
+    def window(arm: str) -> float:
+        p = arms[arm]
+        first = p.completed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks[arm](first)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    for _ in range(SPAN_ROUNDS):
+        for arm in ("on", "off", "off", "on"):
+            samples[arm].append(window(arm))
+    med = {arm: statistics.median(v) for arm, v in samples.items()}
+    cost = (med["on"] - med["off"]) / med["off"]
+    log(f"[spans] {name} ms/step in turns ({len(samples['on'])} windows of {k} steps an arm): on "
+        f"{med['on']:.4f}, off {med['off']:.4f}: spans cost {100 * cost:.4f}% "
+        f"(quartiles on {[round(q, 4) for q in statistics.quantiles(samples['on'], n=4)]}, "
+        f"off {[round(q, 4) for q in statistics.quantiles(samples['off'], n=4)]})")
+    del arms, prog, chunks, sa, sb
+    release(torch)
+    return {"markers": markers // k, "cost": cost, "ring_off": off, "families_ms": kernel_fam,
+            "unspanned_ms": unspanned, "busy_ms": busy, "launches": split.total_ops() / k}
+
+
+def phase_spans(torch) -> dict:
+    return {name: span_cell(torch, name) for name in SPAN_CELLS}
+
+
 def main() -> int:
     import torch
 
@@ -2709,6 +2905,12 @@ def main() -> int:
 
     smi, kind = phase_card(torch)
     phase_build(torch)
+    if sys.argv[1:] == ["spans"]:
+        phase_spans(torch)
+        mark("spans")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
     errs = {"K1": phase_forward(torch), "K2": phase_backward(torch)}
     errs["K3"], errs["K4"] = phase_qk_prep(torch)
     phase_flash_plan(torch)
@@ -2751,6 +2953,8 @@ def main() -> int:
     phase_dp(torch, vt, smi)
     torch.cuda.synchronize()
     mark("data parallel")
+    phase_spans(torch)
+    mark("spans")
 
     rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)
         ("K1", "sde_sampler_fwd", "sde_sampler_fwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:141",

@@ -213,9 +213,9 @@ class _Cycle:
 
 
 def _fake_capture(monkeypatch, fail: bool = False) -> dict:
-    """``torch.cuda``'s streams and graph capture faked in ``chunk``, so that
-    ``TrainChunk._warm_and_capture`` runs on the CPU; returns what the
-    capture saw."""
+    """``torch.cuda``'s streams and graph capture, and the span markers'
+    launches, faked in ``chunk``, so that ``TrainChunk._warm_and_capture``
+    runs on the CPU; returns what the capture saw."""
     from viforsdes_tpu_torch.inference import chunk as chunk_mod
 
     seen: dict = {}
@@ -242,6 +242,9 @@ def _fake_capture(monkeypatch, fail: bool = False) -> dict:
     monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(cuda, "CUDAGraph", object)
     monkeypatch.setattr(cuda, "graph", Capture)
+    # the device spans' CUDA calls inside the capture: marker launches, node counts
+    monkeypatch.setattr(chunk_mod.profiling, "_launch_marker", lambda *args: -1)
+    monkeypatch.setattr(chunk_mod.profiling, "captured_nodes", lambda stream: -1)
     return seen
 
 

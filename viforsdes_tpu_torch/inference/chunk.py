@@ -30,15 +30,27 @@ params, AdamW state and EMA, updated in place:
 A graph holds the addresses of the buffers it was captured on, so the trainer
 updates its state in place (``restore_checkpoint``, ``set_theta_mean``), and
 a replay after the buffers were replaced raises.
+
+Device spans (``utils/profiling.py``): the eager warm steps count the span
+boundaries of K steps on the host, and the capture, unless
+``profiling.set_device_spans(False)`` turned them off, launches a marker
+kernel at each, into its slot of the chunk's ring (``spans``), so the graph
+holds them and every replay stamps the ring; the nodes captured in all are
+``nodes``. The host's own spans: ``vtt.chunk.draws`` (the draws and copies
+before a call) and ``vtt.chunk.replay``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import TYPE_CHECKING
 
 import torch
 from torch import Tensor
+from torch.profiler import record_function
+
+from viforsdes_tpu_torch.utils import profiling
 
 if TYPE_CHECKING:
     from viforsdes_tpu_torch.inference.trainer import VariationalInferenceTrainer
@@ -61,20 +73,24 @@ class TrainChunk:
         self.metrics: Tensor | None = None
         self.graph: torch.cuda.CUDAGraph | None = None
         self._captured_on: tuple[int, ...] | None = None
+        self.spans: profiling.SpanRecorder | None = None  # the captured markers and their ring
+        self.nodes: int | None = None  # the graph's nodes, markers included
 
     def __call__(self, first_step: int) -> Tensor:
         t = self.trainer
         steps = range(first_step, first_step + self.length)
-        draws = [t.draws(step) for step in steps]
-        if self.draws is None:
-            self.draws = [[(torch.empty_like(e), torch.empty_like(n)) for e, n in d] for d in draws]
-        for bufs, step_draws in zip(self.draws, draws):
-            for (e_buf, n_buf), (e, n) in zip(bufs, step_draws):
-                e_buf.copy_(e)
-                n_buf.copy_(n)
-        t._upload(t._step_schedule(first_step, self.length), out=self.schedule)
+        with record_function("vtt.chunk.draws"):
+            draws = [t.draws(step) for step in steps]
+            if self.draws is None:
+                self.draws = [[(torch.empty_like(e), torch.empty_like(n)) for e, n in d] for d in draws]
+            for bufs, step_draws in zip(self.draws, draws):
+                for (e_buf, n_buf), (e, n) in zip(bufs, step_draws):
+                    e_buf.copy_(e)
+                    n_buf.copy_(n)
+            t._upload(t._step_schedule(first_step, self.length), out=self.schedule)
         if self.graph is not None:
-            self._replay(first_step)
+            with record_function("vtt.chunk.replay"):
+                self._replay(first_step)
         elif t.device.type == "cuda":
             self._warm_and_capture(first_step)
         else:
@@ -105,8 +121,12 @@ class TrainChunk:
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
+        spans = profiling.device_spans_enabled()
         with torch.cuda.stream(side):
-            self._run()
+            # with spans on, the warm steps count the boundaries the capture marks
+            with profiling.recording_spans() if spans else contextlib.nullcontext() as warm:
+                self._run()
+            ring = torch.zeros(len(warm.boundaries), dtype=torch.int64, device=dev) if spans else None
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mode = "global" if self.trainer.mesh is None else "thread_local"
@@ -120,7 +140,9 @@ class TrainChunk:
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
-                self._run()
+                with profiling.marking_spans(ring) if spans else contextlib.nullcontext() as marked:
+                    self._run()
+                nodes = profiling.captured_nodes(side)
         except RuntimeError as err:
             raise RuntimeError(
                 f"capturing the {self.length}-step training chunk that starts at step "
@@ -129,7 +151,14 @@ class TrainChunk:
         finally:
             if collecting:
                 gc.enable()
+        if spans and [b[:2] for b in marked.boundaries] != [b[:2] for b in warm.boundaries]:
+            raise RuntimeError(
+                f"the {self.length}-step training chunk at step {first_step}: the capture marked other "
+                "span boundaries than its warm steps"
+            )
         self.graph = graph
+        self.spans = marked
+        self.nodes = nodes
         self._captured_on = self._state_pointers()
 
     def _replay(self, first_step: int) -> None:
@@ -141,6 +170,7 @@ class TrainChunk:
             )
         try:
             self.graph.replay()
+            self.trainer._last_replay = self
         except RuntimeError as err:
             raise RuntimeError(
                 f"replaying the {self.length}-step training chunk that starts at step "

@@ -62,6 +62,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 from torch.distributed.device_mesh import DeviceMesh
+from torch.profiler import record_function
 
 from viforsdes_tpu_torch.config import EncoderConfig, HeadConfig, PretrainConfig, TrainingConfig
 from viforsdes_tpu_torch.core.observations import (
@@ -86,6 +87,7 @@ from viforsdes_tpu_torch.inference.path_sampler import sample_diffusion_paths
 from viforsdes_tpu_torch.inference.types import EvidenceLowerBoundComponents, EvidenceLowerBoundResult
 from viforsdes_tpu_torch.models.model import VariationalSDEPosterior
 from viforsdes_tpu_torch.parallel.mesh import DataGroup, data_group
+from viforsdes_tpu_torch.utils import profiling
 from viforsdes_tpu_torch.utils.console import Console
 from viforsdes_tpu_torch.utils.pytree_io import load_checkpoint, save_checkpoint
 
@@ -305,6 +307,7 @@ class VariationalInferenceTrainer:
         self.evidence_lower_bound_history: list[float] = []
         self.best_evidence_lower_bound = float("-inf")
         self._train_chunks: dict[int, TrainChunk] = {}
+        self._last_replay: TrainChunk | None = None  # read by profiling.device_span_ms
         self._sync_from_root()
 
     # ------------------------------------------------------------- state
@@ -469,10 +472,11 @@ class VariationalInferenceTrainer:
         observation-variance anneal the claimed variance is ``obs_variance``
         (a 0-dim device tensor) or else the anneal's at ``step``."""
         iw = self.config.iw_samples
-        theta = self.model.theta_posterior.rsample(params["theta"], theta_eps)
-        if iw > 1:
-            # contiguous groups of iw paths per theta (the ELBO's IWAE groups)
-            theta = torch.repeat_interleave(theta, iw, dim=0)
+        with profiling.device_span("theta"):
+            theta = self.model.theta_posterior.rsample(params["theta"], theta_eps)
+            if iw > 1:
+                # contiguous groups of iw paths per theta (the ELBO's IWAE groups)
+                theta = torch.repeat_interleave(theta, iw, dim=0)
         batch_size = path_noise.shape[1]
         x0 = self._x0_single.expand(batch_size, self.sde.state_dim)
         sample = sample_diffusion_paths(
@@ -488,27 +492,28 @@ class VariationalInferenceTrainer:
             compute_dtype=self.config.compute_dtype.value_dtype,
             sde=self.sde,
         )
-        if self.config.obs_variance_final is not None:
-            if obs_variance is None:
-                obs_variance = self._annealed_obs_variance(step)
-        elif self.config.learn_obs_variance:
-            obs_variance = OBS_VARIANCE_FLOOR + torch.exp(params["obs"]["log_variance"])
-        else:
-            obs_variance = None
-        return compute_evidence_lower_bound(
-            self.sde,
-            self.observation_likelihood,
-            self.prior,
-            self.model.theta_posterior,
-            params["theta"],
-            theta,
-            sample,
-            self.config.time_step,
-            obs_indices=self.obs_indices,
-            obs_values=self.obs_values,
-            iw_samples=iw,
-            obs_variance=obs_variance,
-        )
+        with profiling.device_span("elbo"):
+            if self.config.obs_variance_final is not None:
+                if obs_variance is None:
+                    obs_variance = self._annealed_obs_variance(step)
+            elif self.config.learn_obs_variance:
+                obs_variance = OBS_VARIANCE_FLOOR + torch.exp(params["obs"]["log_variance"])
+            else:
+                obs_variance = None
+            return compute_evidence_lower_bound(
+                self.sde,
+                self.observation_likelihood,
+                self.prior,
+                self.model.theta_posterior,
+                params["theta"],
+                theta,
+                sample,
+                self.config.time_step,
+                obs_indices=self.obs_indices,
+                obs_values=self.obs_values,
+                iw_samples=iw,
+                obs_variance=obs_variance,
+            )
 
     def _step_math(
         self,
@@ -526,7 +531,9 @@ class VariationalInferenceTrainer:
         exactly, since IWAE groups never span microbatches. ``theta_scale``
         0.0 freezes the applied theta (and observation-variance) update during
         the warmup; under the observation-variance anneal ``obs_variance``
-        (a 0-dim device tensor) is the step's claimed variance."""
+        (a 0-dim device tensor) is the step's claimed variance. The step is
+        device span ``step``, its update ``optimizer``
+        (``utils/profiling.py``)."""
         if self.config.obs_variance_final is not None and obs_variance is None:
             raise ValueError(
                 "obs_variance_final is set: training steps must pass the step's "
@@ -534,6 +541,7 @@ class VariationalInferenceTrainer:
             )
         if len(draws) != self.config.grad_accum_steps:
             raise ValueError(f"expected {self.config.grad_accum_steps} draws, got {len(draws)}")
+        profiling.mark("step", True)
         grads: dict[str, Tensor] | None = None
         results: list[EvidenceLowerBoundResult] = []
         for theta_eps, path_noise in draws:
@@ -547,9 +555,11 @@ class VariationalInferenceTrainer:
                 result = self._elbo_from_params(
                     self.layout.unpack(leaves), theta_eps, path_noise, obs_variance=obs_variance
                 )
+                profiling.mark("elbo.bwd", True)
                 g_micro = torch.autograd.grad(
                     -result.evidence_lower_bound, [leaves[g] for g in GROUPS], allow_unused=True
                 )
+                profiling.mark("grads.tail", False)
                 g_micro = {
                     g: torch.zeros_like(params[g]) if d is None else d
                     for g, d in zip(GROUPS, g_micro)
@@ -565,28 +575,30 @@ class VariationalInferenceTrainer:
         if self._dp is not None:
             grads, result = self._mesh_mean(grads, result)
 
-        grad_norm = global_norm(grads)
-        updates = self.optimizer.update(grads, opt_state, params, grad_norm)
-        if theta_scale is not None:
-            updates["theta"] = updates["theta"] * theta_scale
-        with torch.no_grad():
-            for g in GROUPS:
-                params[g].add_(updates[g])
-            ema_update(ema, params)
-            param_means = self.model.theta_posterior.expected_value(
-                self.layout.unpack(params)["theta"]
+        with profiling.device_span("optimizer"):
+            grad_norm = global_norm(grads)
+            updates = self.optimizer.update(grads, opt_state, params, grad_norm)
+            if theta_scale is not None:
+                updates["theta"] = updates["theta"] * theta_scale
+            with torch.no_grad():
+                for g in GROUPS:
+                    params[g].add_(updates[g])
+                ema_update(ema, params)
+                param_means = self.model.theta_posterior.expected_value(
+                    self.layout.unpack(params)["theta"]
+                )
+            metrics = StepMetrics(
+                elbo=result.evidence_lower_bound,
+                observation_log_prob=result.components.observation_log_prob,
+                sde_log_prob=result.components.sde_log_prob,
+                generative_log_prob=result.components.generative_log_prob,
+                prior_log_prob=result.components.prior_log_prob,
+                posterior_log_prob=result.components.posterior_log_prob,
+                grad_norm=grad_norm,
+                param_means=param_means,
+                notfinite_count=opt_state["notfinite_count"].clone(),
             )
-        metrics = StepMetrics(
-            elbo=result.evidence_lower_bound,
-            observation_log_prob=result.components.observation_log_prob,
-            sde_log_prob=result.components.sde_log_prob,
-            generative_log_prob=result.components.generative_log_prob,
-            prior_log_prob=result.components.prior_log_prob,
-            posterior_log_prob=result.components.posterior_log_prob,
-            grad_norm=grad_norm,
-            param_means=param_means,
-            notfinite_count=opt_state["notfinite_count"].clone(),
-        )
+        profiling.mark("step", False)
         return params, opt_state, ema, metrics
 
     def _mesh_mean(
@@ -661,7 +673,20 @@ class VariationalInferenceTrainer:
         ``checkpoint_every`` and ``checkpoint_path``, a checkpoint is written
         whenever the completed steps are a multiple of ``checkpoint_every``.
         Under a mesh, ``callback`` and the checkpoint writes run on the mesh's
-        first rank only."""
+        first rank only. Host spans for the profiler: ``vtt.train`` (all of
+        it), ``vtt.train.flush`` (reading the metrics rows), and
+        ``vtt.train.callback``; a chunk adds ``vtt.chunk.draws`` and
+        ``vtt.chunk.replay``."""
+        with record_function("vtt.train"):
+            return self._train(callback, update_interval, checkpoint_every, checkpoint_path)
+
+    def _train(
+        self,
+        callback: Callable[[int, float], None] | None,
+        update_interval: int,
+        checkpoint_every: int | None,
+        checkpoint_path: str | Path | None,
+    ) -> TrainingState:
         is_root = self._dp is None or self._dp.rank == 0
         if not is_root:
             callback = None
@@ -689,39 +714,42 @@ class VariationalInferenceTrainer:
             ``keep_last=1`` leaves the newest dispatch's copy unread, so the
             device keeps working on it while the host catches up."""
             nonlocal loss_ema
-            if len(pending) <= keep_last:
-                return
-            take = pending[: len(pending) - keep_last]
-            del pending[: len(take)]
-            if take[-1][2] is not None:
-                take[-1][2].synchronize()
-            worst = 0
-            for first_step, host, _ in take:
-                for step, row in enumerate(host.tolist(), start=first_step):
-                    elbo = row[0]
-                    loss_ema = LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo) if step > 0 else -elbo
-                    self.evidence_lower_bound_history.append(elbo)
-                    if elbo > self.best_evidence_lower_bound:
-                        self.best_evidence_lower_bound = elbo
-                    if callback is not None:
-                        callback(step, elbo)
-                    worst = max(worst, int(row[7]))
-            last_step = step
-            if worst >= MAX_CONSECUTIVE_NONFINITE_STEPS:
-                raise RuntimeError(
-                    f"training diverged: {worst} consecutive non-finite update "
-                    f"steps by step {last_step} (params remain at their last "
-                    f"finite values; inspect the latest checkpoint)"
+            with record_function("vtt.train.flush"):
+                if len(pending) <= keep_last:
+                    return
+                take = pending[: len(pending) - keep_last]
+                del pending[: len(take)]
+                if take[-1][2] is not None:
+                    take[-1][2].synchronize()
+                worst = 0
+                for first_step, host, _ in take:
+                    for step, row in enumerate(host.tolist(), start=first_step):
+                        elbo = row[0]
+                        loss_ema = (LOSS_EMA_DECAY * loss_ema + (1 - LOSS_EMA_DECAY) * (-elbo)
+                                    if step > 0 else -elbo)
+                        self.evidence_lower_bound_history.append(elbo)
+                        if elbo > self.best_evidence_lower_bound:
+                            self.best_evidence_lower_bound = elbo
+                        if callback is not None:
+                            with record_function("vtt.train.callback"):
+                                callback(step, elbo)
+                        worst = max(worst, int(row[7]))
+                last_step = step
+                if worst >= MAX_CONSECUTIVE_NONFINITE_STEPS:
+                    raise RuntimeError(
+                        f"training diverged: {worst} consecutive non-finite update "
+                        f"steps by step {last_step} (params remain at their last "
+                        f"finite values; inspect the latest checkpoint)"
+                    )
+                progress.update(
+                    step=last_step,
+                    loss=loss_ema / (1 - LOSS_EMA_DECAY ** (last_step + 1)),
+                    elbo=row[0],
+                    best_elbo=self.best_evidence_lower_bound,
+                    components=dict(zip(_COMPONENTS, row[1:6])),
+                    grad_norm=row[6],
+                    param_means=np.asarray(row[8:]),
                 )
-            progress.update(
-                step=last_step,
-                loss=loss_ema / (1 - LOSS_EMA_DECAY ** (last_step + 1)),
-                elbo=row[0],
-                best_elbo=self.best_evidence_lower_bound,
-                components=dict(zip(_COMPONENTS, row[1:6])),
-                grad_norm=row[6],
-                param_means=np.asarray(row[8:]),
-            )
 
         checkpointing = checkpoint_every is not None and checkpoint_path is not None
         n_iterations = self.config.n_iterations

@@ -20,6 +20,7 @@ from viforsdes_tpu_torch.config import EncoderConfig
 from viforsdes_tpu_torch.ops.embeddings import RotaryTables, precompute_rope, sinusoidal_embedding
 from viforsdes_tpu_torch.ops.initializers import fan_in_uniform_linear_init, linear
 from viforsdes_tpu_torch.ops.sit import SiTConfig, sit, sit_init
+from viforsdes_tpu_torch.utils import profiling
 
 _ROPE_MIN_LEN = 2048
 
@@ -122,22 +123,24 @@ class ObservationContextEncoder:
         *,
         compute_dtype: torch.dtype = torch.bfloat16,
     ) -> Tensor:
-        """``(obs [T_obs, O], theta [B, P]) -> context [B, n_grid, H]`` fp32."""
-        batch = sde_parameters.shape[0]
-        h = params["bridge_token"].expand(self.n_grid, self.hidden_dim)
-        obs_tokens = linear(params["obs_proj"], obs_values)
-        h = h.index_put((self.obs_slot_indices,), obs_tokens)
-        h = h + sinusoidal_embedding(self.grid_times, self.hidden_dim)
-        h = h[None].expand(batch, self.n_grid, self.hidden_dim)
+        """``(obs [T_obs, O], theta [B, P]) -> context [B, n_grid, H]`` fp32,
+        as device span ``encoder``."""
+        with profiling.device_span("encoder"):
+            batch = sde_parameters.shape[0]
+            h = params["bridge_token"].expand(self.n_grid, self.hidden_dim)
+            obs_tokens = linear(params["obs_proj"], obs_values)
+            h = h.index_put((self.obs_slot_indices,), obs_tokens)
+            h = h + sinusoidal_embedding(self.grid_times, self.hidden_dim)
+            h = h[None].expand(batch, self.n_grid, self.hidden_dim)
 
-        # cond stays [B, C]: constant over the grid, so the SiT blocks run the
-        # adaLN projection once per sample and broadcast over tokens
-        cond = self._cond(params, sde_parameters)
-        context = sit(
-            params["sit"],
-            self.sit_config,
-            h.to(compute_dtype),
-            cond=cond.to(compute_dtype),
-            rotary=self.rotary,
-        )
-        return context.float()
+            # cond stays [B, C]: constant over the grid, so the SiT blocks run the
+            # adaLN projection once per sample and broadcast over tokens
+            cond = self._cond(params, sde_parameters)
+            context = sit(
+                params["sit"],
+                self.sit_config,
+                h.to(compute_dtype),
+                cond=cond.to(compute_dtype),
+                rotary=self.rotary,
+            )
+            return context.float()

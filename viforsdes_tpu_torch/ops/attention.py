@@ -38,6 +38,7 @@ from viforsdes_tpu_torch.ops.initializers import (
 )
 from viforsdes_tpu_torch.ops.norms import rms_norm
 from viforsdes_tpu_torch.ops.qk_prep import SUPPORTED_HEAD_DIMS, qk_prep
+from viforsdes_tpu_torch.utils import profiling
 
 
 class AttentionConfig(NamedTuple):
@@ -94,7 +95,24 @@ def attention(
     v0: Tensor | None = None,
     real_len: int | None = None,
 ) -> tuple[Tensor, Tensor]:
-    """``[B, S, E] -> ([B, S, E], v_state [B, S, H, D])``."""
+    """``[B, S, E] -> ([B, S, E], v_state [B, S, H, D])``, as device span
+    ``attention``; its backward, from the output's gradient to the input's,
+    as ``attention.bwd``."""
+    with profiling.device_span("attention"):
+        out, v = _attention(params, cfg, hidden_states, rotary, v0, real_len)
+    profiling.on_grad((out,), begin="attention.bwd")
+    profiling.on_grad((hidden_states,), end="attention.bwd")
+    return out, v
+
+
+def _attention(
+    params: dict,
+    cfg: AttentionConfig,
+    hidden_states: Tensor,
+    rotary: RotaryTables | None,
+    v0: Tensor | None,
+    real_len: int | None,
+) -> tuple[Tensor, Tensor]:
     b, s, _ = hidden_states.shape
     h, d = cfg.num_heads, cfg.head_dim
 

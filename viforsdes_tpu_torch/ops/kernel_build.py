@@ -165,7 +165,17 @@ ATTENTION = Library(
     },
 )
 
-LIBRARIES = (SDE_SAMPLER, ATTENTION)
+# the span markers of utils/profiling.py
+SPANS = Library(
+    "spans",
+    ["spans.cu"],
+    {
+        "span_mark": [_i, _i, _p, _p, _p],
+        "span_captured_nodes": [_p, _p],
+    },
+)
+
+LIBRARIES = (SDE_SAMPLER, ATTENTION, SPANS)
 
 
 class LaunchCounter:
