@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py spans    # the card, the build and [spans] alone
+    python3 chip_smoke.py adaln    # the card, the build and [adaln] alone
 
 Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
 
@@ -161,7 +162,19 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failure exits non-zero):
    (attention once a block), and ``device_span_ms`` from the ring within
    ``SPAN_RING_BAR`` of the trace's marker times per family; the step's
    split by span (kernel ms and launches, ``portbench/harness/spans.py``);
-   ms a step with spans on and off in turns (on, off, off, on).
+   ms a step with spans on and off in turns (on, off, off, on);
+19. ``[adaln]``: the SiT's fused norm site (``ops/adaln_norm.py``) at both
+   cells' shapes ([32, 2001, 256] and [512, 101, 256]), bf16 and fp32, with
+   and without a residual: x_new bitwise the eager composition's, m bitwise
+   the composition's given the kernel's row statistics, which lie within
+   1e-5 of the eager ones, and within 2 ulps of the eager m in bf16 (one
+   in all but the rows where a rounded statistic flips; 16 in fp32, whose
+   statistics are not rounded); the backward against the
+   plain VJP and fp32 autograd; two runs bitwise equal; the forward's and
+   the backward's time against their byte bound beside the eager
+   composition's; in each cell's trainer (the benchmark's harness) 16
+   forward and 16 backward launches a SiT call through the first chunk, and
+   the kernels of one profiled replay by name, with their device ms.
 
 The card's ``nvidia-smi`` line (name, power limit) is printed again just
 before the results. The line before the last is ``{"kernels": [...]}`` with
@@ -2889,6 +2902,206 @@ def phase_spans(torch) -> dict:
     return {name: span_cell(torch, name) for name in SPAN_CELLS}
 
 
+ADALN_SHAPES = ((LZ_BATCH, 2001, 256), (512, 101, 256))  # the Lorenz r3 and highdim r5 cells' norm sites
+ADALN_CELLS = ("lorenz_r3.bf16", "highdim_r5.bf16", "lorenz_r3.fp32")
+ADALN_SEED = 4620000001
+ADALN_EPS = 1e-5
+ADALN_KERNELS = ("forward_kernel", "backward_kernel", "reduce_kernel")
+# m's bars against the eager composition (tests/test_torch_adaln_norm.py):
+# the row statistics differ by a few fp32 roundings (summation order), which
+# in bf16 flip the rounded mean or rstd of a few rows (one ulp more there)
+# and in fp32, where they stay unrounded, move m by |n| times as many
+ADALN_BF16_ULPS, ADALN_FP32_ULPS = 2.0, 16.0
+
+
+def adaln_case(torch, shape, dtype, residual: bool, seed: int):
+    """A norm site's operands on the card: x, y, gate, scale, shift and the
+    cotangents of x_new and m (y and gate None without a residual)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, h = shape
+
+    def draw(*dims, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*dims, generator=gen, device="cuda")).to(dtype)
+
+    x, y = draw(b, s, h, mean=0.3), draw(b, s, h)
+    gate, scale, shift = (draw(b, 1, h, std=0.3) for _ in range(3))
+    dx_new, dm = draw(b, s, h), draw(b, s, h)
+    return (x, y if residual else None, gate if residual else None, scale, shift,
+            dx_new if residual else None, dm)
+
+
+def ulps(torch, a, ref, dtype):
+    """|a - ref| in ulps of ``dtype`` at max(|ref|, 1): one unit is one
+    rounding of a value of the LayerNorm's output scale."""
+    mant = 7 if dtype == torch.bfloat16 else 23
+    ulp = torch.exp2(torch.floor(torch.log2(ref.double().abs().clamp(min=1.0))) - mant)
+    return (a.double() - ref.double()).abs() / ulp
+
+
+def adaln_check(torch, shape, dtype, residual: bool, seed: int) -> dict:
+    """The kernel pair against the eager composition (forward), the plain
+    VJP (the same fp32 math) and fp32 autograd; twice, bitwise equal."""
+    from viforsdes_tpu_torch.ops import adaln_norm as an
+
+    x, y, gate, scale, shift, dx_new, dm = adaln_case(torch, shape, dtype, residual, seed)
+    runs = []
+    for _ in range(2):
+        x_new, m, stats = an._forward_cuda(x, y, gate, scale, shift, ADALN_EPS)
+        grads = an._backward_cuda(x_new, y, gate, scale, stats, dx_new, dm)
+        torch.cuda.synchronize()
+        runs.append((x_new, m, stats, *grads))
+    same_bits({"first": runs[0], "second": runs[1]}, f"[adaln] {shape} {dtype} residual={residual}")
+    x_new, m, stats, *grads = runs[0]
+    want_x_new, want_m = an._forward_plain(x, y, gate, scale, shift, ADALN_EPS)
+    if not torch.equal(x_new, want_x_new):
+        raise AssertionError(f"[adaln] {shape} {dtype}: x_new differs from x + y*gate")
+    mean, rstd = stats[..., :1].to(dtype), stats[..., 1:].to(dtype)
+    if not torch.equal(m, (1 + scale) * ((x_new - mean) * rstd) + shift):
+        raise AssertionError(f"[adaln] {shape} {dtype}: m differs from the composition given its statistics")
+    u = ulps(torch, m, want_m, dtype)
+    want_stats = an._row_stats(want_x_new, ADALN_EPS)
+    stats_err = float(((stats - want_stats).abs() / want_stats.abs().clamp(min=1e-3)).max())
+    plain = an._backward_plain(x_new, y, gate, scale, stats, dx_new, dm)
+    leaves = [None if t is None else t.detach().float().requires_grad_() for t in (x, y, gate, scale, shift)]
+    f_new, f_m = an._forward_plain(*leaves, ADALN_EPS)
+    outs, cots = [f_m], [dm.float()]
+    if residual:
+        outs.append(f_new)
+        cots.append(dx_new.float())
+    auto = iter(torch.autograd.grad(outs, [t for t in leaves if t is not None], cots))
+    exact = [None if t is None else next(auto) for t in leaves]
+    errs = {}
+    for name, g, p, e in zip(("dx", "dy", "dgate", "dscale", "dshift"), grads, plain, exact):
+        if g is None:
+            continue
+        errs[name] = (check_close(g, p, dtype, (1e-5, 1e-6), 8e-3, f"[adaln] {name} against the plain VJP"),
+                      check_close(g, e, dtype, (5e-5, 5e-6), BF16_BWD, f"[adaln] {name} against fp32 autograd"))
+    out = {"m_max_ulps": float(u.max()), "m_over_one_ulp": int((u > 1).sum()), "stats_rel": stats_err,
+           "grad_errs": errs}
+    log(f"[adaln] {shape} {str(dtype)[6:]} residual={residual}: x_new bitwise, m bitwise given its statistics "
+        f"and max {out['m_max_ulps']:.3f} "
+        f"ulps ({out['m_over_one_ulp']} elements over one), stats rel {stats_err:.2e}; backward max |err| "
+        f"(plain VJP, fp32 autograd) " + json.dumps({k: [float(f"{a:.3e}"), float(f"{b:.3e}")]
+                                                       for k, (a, b) in errs.items()})
+        + "; two runs bitwise equal")
+    if out["m_max_ulps"] > (ADALN_BF16_ULPS if dtype == torch.bfloat16 else ADALN_FP32_ULPS):
+        raise AssertionError(f"[adaln] {shape} {dtype}: m {out['m_max_ulps']} ulps from the eager composition")
+    if stats_err > 1e-5:
+        raise AssertionError(f"[adaln] {shape} {dtype}: row statistics {stats_err} from the eager ones")
+    return out
+
+
+def adaln_times(torch, shape, dtype, n: int = 50) -> dict:
+    """One residual site's forward and backward (with its reduction) on the
+    card, the eager composition's forward + autograd backward, and the bound:
+    each input read once, each output written once, at 3.35 TB/s."""
+    from viforsdes_tpu_torch.ops import adaln_norm as an
+
+    x, y, gate, scale, shift, dx_new, dm = adaln_case(torch, shape, dtype, True, ADALN_SEED)
+    x_new, m, stats = an._forward_cuda(x, y, gate, scale, shift, ADALN_EPS)
+    grads = an._backward_cuda(x_new, y, gate, scale, stats, dx_new, dm)
+    fwd_bytes = nbytes(x, y, gate, scale, shift, x_new, m, stats)
+    bwd_bytes = nbytes(x_new, y, gate, scale, stats, dx_new, dm, grads)
+    leaves = [t.detach().requires_grad_() for t in (x, y, gate, scale, shift)]
+
+    def eager():
+        e_new, e_m = an._forward_plain(*leaves, ADALN_EPS)
+        torch.autograd.grad([e_m, e_new], leaves, [dm, dx_new])
+
+    out = {
+        "fwd_ms": cuda_ms(torch, lambda: an._forward_cuda(x, y, gate, scale, shift, ADALN_EPS), n),
+        "bwd_ms": cuda_ms(torch, lambda: an._backward_cuda(x_new, y, gate, scale, stats, dx_new, dm), n),
+        "plain_ms": cuda_ms(torch, eager, max(n // 5, 3)),
+        "fwd_bound_ms": bound(0, fwd_bytes, "bf16")["bound_ms"],
+        "bwd_bound_ms": bound(0, bwd_bytes, "bf16")["bound_ms"],
+    }
+    out["site_ms"] = out["fwd_ms"] + out["bwd_ms"]
+    out["site_bound_ms"] = out["fwd_bound_ms"] + out["bwd_bound_ms"]
+    log(f"[adaln] {shape} {str(dtype)[6:]} times: forward {out['fwd_ms']:.4f} ms (bound {out['fwd_bound_ms']:.4f}, "
+        f"{out['fwd_bound_ms'] / out['fwd_ms']:.3f} of it), backward {out['bwd_ms']:.4f} ms (bound "
+        f"{out['bwd_bound_ms']:.4f}, {out['bwd_bound_ms'] / out['bwd_ms']:.3f}); the site {out['site_ms']:.4f} "
+        f"against {out['site_bound_ms']:.4f} ({out['site_bound_ms'] / out['site_ms']:.3f}); eager forward + "
+        f"backward {out['plain_ms']:.4f} ms ({out['plain_ms'] / out['site_ms']:.2f}x the kernels)")
+    return out
+
+
+def adaln_counts(torch, name: str) -> dict:
+    """The cell's trainer through its first chunk (eager, then captured):
+    16 forward and 16 backward launches a SiT call by the counters; then one
+    replay profiled: the kernels by name, a step, and their device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.harness import spec
+    from viforsdes_tpu_torch.models import encoder as enc_mod
+    from viforsdes_tpu_torch.ops import adaln_norm as an
+
+    cell = spec.load_cell(name)
+    k = int(cell.traffic["steps_per_call"])
+    sites = 2 * int(cell.config["encoder"]["depth"])
+    per_step = sites * int(cell.traffic["grad_accum_steps"])
+    calls = [0]
+    real_sit = enc_mod.sit
+
+    def counting_sit(*args, **kwargs):
+        calls[0] += 1
+        return real_sit(*args, **kwargs)
+
+    an.FORWARD_LAUNCHES.reset()
+    an.BACKWARD_LAUNCHES.reset()
+    enc_mod.sit = counting_sit
+    try:
+        prog = span_arm(torch, cell, True)  # the first chunk, captured, and one replay
+    finally:
+        enc_mod.sit = real_sit
+    fwd, bwd = an.FORWARD_LAUNCHES.count, an.BACKWARD_LAUNCHES.count
+    if calls[0] == 0 or fwd != sites * calls[0] or bwd != sites * calls[0]:
+        raise AssertionError(f"[adaln] {name}: {fwd} forward and {bwd} backward launches over {calls[0]} "
+                             f"SiT calls, expected {sites} each a call")
+    want = {kern: per_step * k for kern in ADALN_KERNELS}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prog.train_to(prog.completed + k)
+            torch.cuda.synchronize()
+        got = {kern: 0 for kern in ADALN_KERNELS}
+        dev_us = {kern: 0.0 for kern in ADALN_KERNELS}
+        for evt in prof.key_averages():
+            for kern in ADALN_KERNELS:
+                if f"adaln::{kern}" in evt.key:
+                    got[kern] += evt.count
+                    dev_us[kern] += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
+        if got == want:
+            break
+        log(f"[adaln] {name}: profile {attempt} counted {got}"
+            + ("; profiling another replay" if attempt < PROFILE_TRIES else ""))
+    if got != want:
+        raise AssertionError(f"[adaln] {name}: kernels of one replay {got}, expected {want}")
+    ms = {kern: dev_us[kern] * 1e-3 / k for kern in ADALN_KERNELS}
+    log(f"[adaln] {name}: {calls[0]} SiT calls through the first chunk, {fwd} forward and {bwd} backward "
+        f"launches ({sites} each a call); one replay: " + json.dumps({kern: got[kern] // k for kern in got})
+        + f" a step, device ms a step " + json.dumps({kern: round(v, 4) for kern, v in ms.items()})
+        + f" ({sum(ms.values()):.4f} in all, {sum(ms.values()) / per_step:.4f} a site)")
+    del prog
+    release(torch)
+    return {"calls": calls[0], "per_step": per_step, "ms": ms}
+
+
+def phase_adaln(torch) -> dict:
+    """The fused norm site: kernel pair against the composition at both
+    cells' shapes, bf16 and fp32, with and without a residual; its time
+    against its byte bound; its launches in each cell's captured chunk."""
+    t0 = time.perf_counter()
+    checks = {(shape, str(dtype), residual): adaln_check(torch, shape, dtype, residual, ADALN_SEED + i)
+              for i, (shape, dtype, residual) in enumerate(
+                  (shape, dtype, residual) for shape in ADALN_SHAPES
+                  for dtype in (torch.bfloat16, torch.float32) for residual in (True, False))}
+    times = {(shape, str(dtype)): adaln_times(torch, shape, dtype)
+             for shape in ADALN_SHAPES for dtype in (torch.bfloat16, torch.float32)}
+    counts = {name: adaln_counts(torch, name) for name in ADALN_CELLS}
+    log(f"[adaln] done in {time.perf_counter() - t0:.1f} s")
+    return {"checks": checks, "times": times, "counts": counts}
+
+
 def main() -> int:
     import torch
 
@@ -2905,9 +3118,9 @@ def main() -> int:
 
     smi, kind = phase_card(torch)
     phase_build(torch)
-    if sys.argv[1:] == ["spans"]:
-        phase_spans(torch)
-        mark("spans")
+    if sys.argv[1:] in (["spans"], ["adaln"]):
+        {"spans": phase_spans, "adaln": phase_adaln}[sys.argv[1]](torch)
+        mark(sys.argv[1])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -2955,6 +3168,8 @@ def main() -> int:
     mark("data parallel")
     phase_spans(torch)
     mark("spans")
+    phase_adaln(torch)
+    mark("adaln")
 
     rows = [  # (key, name, source, TPU kernel, ms, plain ms, library ms)
         ("K1", "sde_sampler_fwd", "sde_sampler_fwd.cu", "viforsdes_tpu/ops/pallas/sde_sampler.py:141",

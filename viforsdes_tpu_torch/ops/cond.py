@@ -1,8 +1,8 @@
 """adaLN-Zero conditioning (twin of ``viforsdes_tpu/ops/cond.py``).
 
 ``SiLU -> Linear(cond_dim, 3*branches*hidden)`` with the linear ZERO-initialized,
-chunked into per-branch ``(scale, shift, gate)``; ``affine(t) = (1+scale)*t+shift``
-and ``gate(t) = t*gate_value``.
+chunked into per-branch ``(scale, shift, gate)``: a branch modulates ``t`` as
+``(1+scale)*t + shift`` and gates it as ``t*gate`` (``ops/adaln_norm.py``).
 """
 
 from __future__ import annotations
@@ -20,12 +20,6 @@ class CondBranch(NamedTuple):
     scale: Tensor
     shift: Tensor
     gate_value: Tensor
-
-    def affine(self, tensor: Tensor) -> Tensor:
-        return (1 + self.scale) * tensor + self.shift
-
-    def gate(self, tensor: Tensor) -> Tensor:
-        return tensor * self.gate_value
 
 
 def cond_modulator_init(

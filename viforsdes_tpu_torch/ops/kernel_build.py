@@ -165,6 +165,16 @@ ATTENTION = Library(
     },
 )
 
+# the SiT's norm sites (ops/adaln_norm.py)
+ADALN_NORM = Library(
+    "adaln_norm",
+    ["adaln_norm.cu"],
+    {
+        "adaln_norm_fwd": [_p] * 3 + [_ll, _p, _ll, _p, _ll] + [_p] * 3 + [_i] * 5 + [_f, _p],
+        "adaln_norm_bwd": [_p] * 3 + [_ll, _p, _ll] + [_p] * 7 + [_i] * 5 + [_p],
+    },
+)
+
 # the span markers of utils/profiling.py
 SPANS = Library(
     "spans",
@@ -175,7 +185,7 @@ SPANS = Library(
     },
 )
 
-LIBRARIES = (SDE_SAMPLER, ATTENTION, SPANS)
+LIBRARIES = (SDE_SAMPLER, ATTENTION, ADALN_NORM, SPANS)
 
 
 class LaunchCounter:

@@ -3,7 +3,9 @@ value-residual plumbing (twin of ``viforsdes_tpu/ops/sit.py``).
 
 Per block, two cond branches (attn, mlp), each ``(scale, shift, gate)``;
 residual update ``x + gate * f((1+scale)*norm(x) + shift)`` with non-affine
-LayerNorm; block 0 exports its value state ``v0`` and later blocks mix it in.
+LayerNorm, each residual add run with the LayerNorm and modulation that
+follow it (``ops/adaln_norm.py``); block 0 exports its value state ``v0`` and
+later blocks mix it in.
 No rematerialization: grids of at most 512 tokens take the dense attention
 path, whose probabilities fit in device memory, and longer grids take the
 flash kernels, which save one log-sum-exp per row instead of the
@@ -18,7 +20,8 @@ import torch
 from torch import Tensor
 
 from viforsdes_tpu_torch.ops.attention import AttentionConfig, attention, attention_init
-from viforsdes_tpu_torch.ops.cond import cond_modulator, cond_modulator_init
+from viforsdes_tpu_torch.ops.adaln_norm import gated_norm_modulate
+from viforsdes_tpu_torch.ops.cond import CondBranch, cond_modulator, cond_modulator_init
 from viforsdes_tpu_torch.ops.embeddings import RotaryTables
 from viforsdes_tpu_torch.ops.initializers import (
     DEFAULT_INIT_POLICY,
@@ -27,7 +30,6 @@ from viforsdes_tpu_torch.ops.initializers import (
     linear_init,
 )
 from viforsdes_tpu_torch.ops.mlp import swiglu, swiglu_init
-from viforsdes_tpu_torch.ops.norms import layer_norm
 
 
 class SiTConfig(NamedTuple):
@@ -75,39 +77,14 @@ def sit_block_init(
     }
 
 
-def sit_block(
-    params: dict,
-    cfg: SiTConfig,
-    idx: int,
-    hidden_states: Tensor,
-    *,
-    cond: Tensor,
-    rotary: RotaryTables | None = None,
-    v0: Tensor | None = None,
-    real_len: int | None = None,
-) -> tuple[Tensor, Tensor]:
-    """One block: ``([B,S,H], cond [B,S,C] or [B,C]) -> ([B,S,H], value_state)``.
-    A ``[B, C]`` cond runs the modulator once per sample and broadcasts over
-    tokens."""
+def _branches(params: dict, cond: Tensor) -> tuple[CondBranch, CondBranch]:
+    """A block's attention and MLP modulations. A ``[B, C]`` cond runs the
+    modulator once per sample and broadcasts over tokens as ``[B, 1, H]``."""
     attn_branch, mlp_branch = cond_modulator(params["cond"], cond, branches=2)
     if cond.ndim == 2:
-        attn_branch = type(attn_branch)(*(f.unsqueeze(1) for f in attn_branch))
-        mlp_branch = type(mlp_branch)(*(f.unsqueeze(1) for f in mlp_branch))
-
-    modulated = attn_branch.affine(layer_norm(hidden_states, eps=cfg.norm_eps))
-    attn_out, value_state = attention(
-        params["attn"],
-        cfg.block_attention_config(idx),
-        modulated,
-        rotary=rotary,
-        v0=v0,
-        real_len=real_len,
-    )
-    hidden_states = hidden_states + attn_branch.gate(attn_out)
-
-    modulated = mlp_branch.affine(layer_norm(hidden_states, eps=cfg.norm_eps))
-    hidden_states = hidden_states + mlp_branch.gate(swiglu(params["mlp"], modulated))
-    return hidden_states, value_state
+        attn_branch = CondBranch(*(f.unsqueeze(1) for f in attn_branch))
+        mlp_branch = CondBranch(*(f.unsqueeze(1) for f in mlp_branch))
+    return attn_branch, mlp_branch
 
 
 def sit_init(
@@ -129,14 +106,37 @@ def sit(
     rotary: RotaryTables | None = None,
     real_len: int | None = None,
 ) -> Tensor:
-    """``[B, S, in_dim] -> [B, S, out_dim]``."""
+    """``[B, S, in_dim] -> [B, S, out_dim]``, cond ``[B, S, C]`` or ``[B, C]``.
+
+    Each block's residual update ``x + gate * f(modulated)`` ends at the next
+    norm site, which ``gated_norm_modulate`` runs with the LayerNorm and the
+    modulation in one pass: block i's attention site takes block i-1's MLP
+    output and gate (block 0 has none), its MLP site the attention output.
+    The last block's MLP residual is added before the output projection."""
     tokens = linear(params["input_proj"], x)
+    pending: tuple[Tensor | None, Tensor | None] = (None, None)
     cached_v: Tensor | None = None
     for idx, block_params in enumerate(params["blocks"]):
-        tokens, block_value = sit_block(
-            block_params, cfg, idx, tokens, cond=cond, rotary=rotary, v0=cached_v,
+        attn_branch, mlp_branch = _branches(block_params, cond)
+        tokens, modulated = gated_norm_modulate(
+            tokens, *pending, attn_branch.scale, attn_branch.shift, eps=cfg.norm_eps
+        )
+        attn_out, block_value = attention(
+            block_params["attn"],
+            cfg.block_attention_config(idx),
+            modulated,
+            rotary=rotary,
+            v0=cached_v,
             real_len=real_len,
         )
+        tokens, modulated = gated_norm_modulate(
+            tokens, attn_out, attn_branch.gate_value, mlp_branch.scale, mlp_branch.shift,
+            eps=cfg.norm_eps,
+        )
+        pending = (swiglu(block_params["mlp"], modulated), mlp_branch.gate_value)
         if cached_v is None:
             cached_v = block_value
+    y, gate = pending
+    if y is not None:
+        tokens = tokens + y * gate
     return linear(params["output_proj"], tokens)
